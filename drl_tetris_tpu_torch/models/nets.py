@@ -1,0 +1,305 @@
+"""PPONet ('silver' SventonNet trunk, keyboard-conv policy head, per-piece
+tanh values) as PyTorch modules.
+
+Counterpart of ``drl_tetris_tpu/models/nets.py`` (reference: build_blocks.py,
+sventon_architectures.py, network_utils.py of the TF1 original).  Public
+functions keep the JAX package's layout: ``vis`` is ``(B, H, W, 1)``,
+``pi`` is ``(B, 4, W, 7)``; the modules run NCHW inside and permute at the
+boundary.  Convolutions are plain ``F.conv2d`` (cuDNN on the card), as the
+JAX package left them to XLA.
+
+Compute dtype: with ``compute_dtype='bfloat16'`` (the default) the towers
+run in bfloat16 with float32 parameters cast at each conv, as flax does
+(``promote_dtype``: input, kernel and bias in bf16, bias added after the
+conv), and the heads run in float32.  The cast is explicit; no autocast.
+
+Only the 'silver' architecture is ported; 'vanilla', 'keyboard', 'dreamer'
+and the DQN head wait for a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from drl_tetris_tpu_torch import resolve_device
+
+ARCHITECTURES = ("silver",)
+VEC_DIM = 12          # per-perspective scalar observation (env/observations)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """resblock_kbd settings (experiments/sventon_ppo.py:46-58 defaults),
+    the JAX package's ModelConfig."""
+    compute_dtype: str = "bfloat16"
+    architecture: str = "silver"
+    n_rotations: int = 4
+    n_pieces: int = 7
+    tower_layers: int = 5
+    tower_filters: int = 64
+    tower_filter_size: int = 3
+    val_layers: int = 6
+    val_filters: int = 128
+    val_filter_size: int = 5
+    dropout: float = 0.0
+    separate_piece_values: bool = True
+    visual_stack: Tuple[str, ...] = ()
+    used_pieces: Tuple[int, ...] = (0, 1, 2, 3, 4, 5, 6)
+
+    def __post_init__(self):
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture {self.architecture!r} is not "
+                             f"ported yet; expected one of {ARCHITECTURES}")
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" \
+            else torch.float32
+
+    @property
+    def piece_mask(self) -> torch.Tensor:
+        return torch.tensor([1.0 if p in self.used_pieces else 0.0
+                             for p in range(7)])
+
+
+# ---------------------------------------------------------------------------
+# Utility layers (network_utils.py); ``dim`` is the channel axis, -1 in the
+# JAX layout, 1 inside the modules
+# ---------------------------------------------------------------------------
+
+def apply_visual_pad(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H+2, W+2, C): zero ceiling, one-valued walls and
+    floor."""
+    x = F.pad(x, (0, 0, 0, 0, 1, 0), value=0.0)
+    return F.pad(x, (0, 0, 1, 1, 0, 1), value=1.0)
+
+
+def visual_stack(x: torch.Tensor, items: Sequence[str]) -> torch.Tensor:
+    """Feature planes derived from an NCHW field (network_utils.py:79-93)."""
+    cumsum = torch.cumsum(x, dim=2)
+    shadow = torch.clamp(cumsum, max=1.0)
+    height = torch.arange(x.shape[2], dtype=x.dtype, device=x.device
+                          ).reshape(1, 1, -1, 1).expand(x.shape)
+    table = {"cumsum": cumsum, "shadow": shadow, "height": height,
+             "holes": shadow - x}
+    return torch.cat([x] + [table[k] for k in items], dim=1)
+
+
+def peephole_join(x, y, mode: str = "concat", dim: int = -1):
+    """network_utils.py:52-64: 'add' adds the smaller tensor onto the
+    leading channels of the larger and keeps the rest, 'truncate_add' keeps
+    only the sum, 'concat' concatenates."""
+    if mode in ("add", "truncate_add"):
+        nx, ny = x.shape[dim], y.shape[dim]
+        larger, smaller = (x, y) if nx > ny else (y, x)
+        n = smaller.shape[dim]
+        a = larger.narrow(dim, 0, n) + smaller
+        if mode == "truncate_add":
+            return a
+        return torch.cat([a, larger.narrow(dim, n, larger.shape[dim] - n)],
+                         dim=dim)
+    return torch.cat([x, y], dim=dim)
+
+
+def join_channels(c_conv: int, c_in: int, mode: str) -> int:
+    """Channels out of peephole_join(conv(c_in -> c_conv), input)."""
+    if mode == "add":
+        return max(c_conv, c_in)
+    if mode == "truncate_add":
+        return min(c_conv, c_in)
+    return c_conv + c_in
+
+
+def conv_shape_vector(vec: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Tile (B, K) into (B, h, w, K) planes (JAX layout)."""
+    return vec[:, None, None, :].expand(vec.shape[0], h, w, vec.shape[1])
+
+
+def action_softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the (rotation, translation) plane per piece; x is
+    (B, R, T, P)."""
+    m = torch.amax(x, dim=(1, 2), keepdim=True)
+    e = torch.exp(x - m)
+    return e / torch.sum(e, dim=(1, 2), keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+class ResidualBlock(nn.Module):
+    """build_blocks.py:8-64, layer for layer, NCHW.  Layer i: conv (same
+    padding) -> peephole join with the layer input -> [LayerNorm on a
+    truncate_add output layer] -> activation -> [avg-pool, window clamped
+    to the map size]."""
+
+    def __init__(self, in_channels: int, n_layers: int = 3,
+                 n_filters: int = 128, filter_size=(3, 3),
+                 peepholes: bool = True, pools: bool = False,
+                 pool_size=(3, 2), output_n_filters: Optional[int] = None,
+                 output_activation: Optional[str] = "elu",
+                 normalization: Optional[str] = None,
+                 output_layer: bool = False, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if dropout:
+            raise NotImplementedError("dropout waits for the training slice")
+        self.peepholes, self.pools = peepholes, pools
+        self.pool_size = tuple(pool_size)
+        self.dtype = dtype
+        self.convs = nn.ModuleList()
+        self.modes, self.acts = [], []
+        self.norm = None
+        c = in_channels
+        for i in range(n_layers):
+            n, act, mode, normalize = n_filters, "elu", "add", False
+            last = i == n_layers - 1
+            if last:
+                act = output_activation
+                if output_n_filters is not None:
+                    n, mode = output_n_filters, "truncate_add"
+                    normalize = normalization is not None
+                if output_layer:
+                    normalize = False
+            fh, fw = filter_size
+            self.convs.append(nn.Conv2d(c, n, (fh, fw),
+                                        padding=(fh // 2, fw // 2)))
+            c = join_channels(n, c, mode) if peepholes else n
+            if normalize:
+                self.norm = nn.LayerNorm(c, eps=1e-6)
+            self.modes.append(mode)
+            self.acts.append(act)
+        self.out_channels = c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        last = len(self.convs) - 1
+        for i, conv in enumerate(self.convs):
+            y = x
+            x = F.conv2d(x.to(dt), conv.weight.to(dt), None, 1, conv.padding)
+            x = x + conv.bias.to(dt)[None, :, None, None]
+            if self.peepholes:
+                x = peephole_join(x, y, self.modes[i], dim=1)
+            if i == last and self.norm is not None:
+                x = self.norm(x.float().permute(0, 2, 3, 1)).permute(
+                    0, 3, 1, 2)
+            if self.acts[i] == "elu":
+                x = F.elu(x)
+            elif self.acts[i] == "tanh":
+                x = torch.tanh(x)
+            if self.pools:
+                h, w = x.shape[2:]
+                ph, pw = min(self.pool_size[0], h), min(self.pool_size[1], w)
+                x = F.avg_pool2d(x, (ph, pw), stride=(ph, pw))
+        return x
+
+
+class KeyboardConv(nn.Module):
+    """build_blocks.py:68-83: a full-height, 3-wide VALID conv whose output
+    channels are (rotation x piece) maps aligned to board columns; returns
+    (B, R, W, P)."""
+
+    def __init__(self, in_channels: int, height: int, n_rot: int = 4,
+                 n_pieces: int = 7):
+        super().__init__()
+        self.n_rot, self.n_pieces = n_rot, n_pieces
+        self.conv = nn.Conv2d(in_channels, n_rot * n_pieces, (height, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)                            # (B, R*P, 1, W)
+        b, _, _, w = x.shape
+        return x.reshape(b, self.n_rot, self.n_pieces, w).permute(0, 1, 3, 2)
+
+
+# ---------------------------------------------------------------------------
+# The architecture
+# ---------------------------------------------------------------------------
+
+class SventonNet(nn.Module):
+    """resblock_kbd (sventon_architectures.py:23-73): per-perspective
+    visual towers, vector planes joined in, a second tower, the advantage
+    tower with the keyboard head and (trainer side) the pooled value
+    tower.  Returns raw (V (B,1,1,P|1), A (B,R,W,P))."""
+
+    def __init__(self, cfg: ModelConfig, board=(22, 10),
+                 full_network: bool = True):
+        super().__init__()
+        self.cfg, self.full_network = cfg, full_network
+        dt = cfg.torch_dtype
+        tower = dict(n_layers=cfg.tower_layers, n_filters=cfg.tower_filters,
+                     filter_size=(cfg.tower_filter_size,) * 2,
+                     dropout=cfg.dropout, dtype=dt)
+        c_vis = 1 + len(cfg.visual_stack)
+        self.vis_tower = nn.ModuleList(
+            [ResidualBlock(c_vis, **tower) for _ in range(2)])
+        c_join = VEC_DIM + self.vis_tower[0].out_channels
+        self.join_tower = nn.ModuleList(
+            [ResidualBlock(c_join, **tower) for _ in range(2)])
+        c_joined = self.join_tower[0].out_channels
+        self.adv_tower = ResidualBlock(
+            join_channels(VEC_DIM, c_joined, "add"),
+            output_activation=None, **tower)
+        self.kbd = KeyboardConv(self.adv_tower.out_channels, board[0] + 2,
+                                cfg.n_rotations, cfg.n_pieces)
+        if full_network:
+            self.value_tower = ResidualBlock(
+                2 * c_joined + 2 * c_vis, n_layers=cfg.val_layers,
+                n_filters=cfg.val_filters,
+                filter_size=(cfg.val_filter_size,) * 2, pools=True,
+                output_n_filters=(cfg.n_pieces + 1
+                                  if cfg.separate_piece_values else 1),
+                output_activation=None, output_layer=True,
+                normalization="layer", dropout=cfg.dropout, dtype=dt)
+
+    def forward(self, vec, vis):
+        c = self.cfg
+        dt = c.torch_dtype
+        vis = [apply_visual_pad(v).permute(0, 3, 1, 2) for v in vis]
+        if c.visual_stack:
+            vis = [visual_stack(v, c.visual_stack) for v in vis]
+        vis = [v.to(dt) for v in vis]
+        vec = [v.to(dt) for v in vec]
+        hidden = [t(v) for t, v in zip(self.vis_tower, vis)]
+        h, w = hidden[0].shape[2:]
+        vecp = [v[:, :, None, None].expand(v.shape[0], v.shape[1], h, w)
+                for v in vec]
+        joined = [t(torch.cat([vp, hv], dim=1))
+                  for t, vp, hv in zip(self.join_tower, vecp, hidden)]
+        a = self.adv_tower(peephole_join(joined[0], vecp[1], "add", dim=1))
+        raw_a = self.kbd(a.float())
+        if not self.full_network:
+            return torch.zeros(vec[0].shape[0], 1, 1, 1,
+                               device=raw_a.device), raw_a
+        v = self.value_tower(torch.cat(joined + vis, dim=1))
+        v = v.float().mean(dim=(2, 3))                   # (B, P+1 | 1)
+        if v.shape[-1] > 1:
+            base, offs = v[:, :1], v[:, 1:]
+            mask = c.piece_mask.to(v.device)[None, :]
+            mean = (offs.mean(-1, keepdim=True) * mask).sum(
+                -1, keepdim=True) / mask.sum()
+            v = torch.tanh(base + (offs - mean))
+        else:
+            v = torch.tanh(v)
+        return v[:, None, None, :], raw_a
+
+
+class PPONet(nn.Module):
+    """ppo_nets' network function: pi = softmaxed keyboard head
+    (B, R, W, P), v = per-piece tanh values (B, P) (or (B, 1) zeros with
+    ``full_network=False``, the worker-side net).  The weights live on
+    ``device`` (default "cuda"; raises with no card)."""
+
+    def __init__(self, cfg: ModelConfig, board=(22, 10),
+                 full_network: bool = True, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.trunk = SventonNet(cfg, board, full_network)
+        self.to(resolve_device(device))
+
+    def forward(self, vec, vis):
+        raw_v, raw_a = self.trunk(vec, vis)
+        return action_softmax(raw_a), raw_v.reshape(raw_v.shape[0], -1)

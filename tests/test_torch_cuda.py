@@ -1,0 +1,80 @@
+"""The engine tick kernel (csrc/engine_tick.cu) against its plain PyTorch
+version on the card: every state leaf, reward and done flag bit for bit.
+
+These tests need an NVIDIA GPU and nvcc, and skip elsewhere.  On a machine
+with a card and without JAX, run them without the suite's conftest (which
+imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import sys
+
+import torch  # noqa: I001  (first: see test_torch_harness)
+
+if "jax" in sys.modules:          # under the suite's conftest
+    from tests.test_torch_harness import rekey_jax_cache
+    rekey_jax_cache()
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+
+from drl_tetris_tpu_torch.engine import cuda_tick  # noqa: E402
+from drl_tetris_tpu_torch.engine.core import tree_leaves  # noqa: E402
+from drl_tetris_tpu_torch.env.env import (EnvConfig, TetrisVectorEnv,  # noqa: E402
+                                          step_plain)
+
+pytestmark = pytest.mark.cuda
+
+N, T = 256, 48
+
+
+@pytest.fixture
+def env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return TetrisVectorEnv(EnvConfig(), N, device="cuda")
+
+
+def actions(width, seed):
+    rs = np.random.RandomState(seed)
+    r = rs.randint(0, 4, (T, N)).astype(np.int32)
+    t = rs.randint(0, width, (T, N)).astype(np.int32)
+    return torch.from_numpy(r).cuda(), torch.from_numpy(t).cuda()
+
+
+def assert_bits_equal(a, b, where):
+    for (name, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert x.dtype == y.dtype and x.shape == y.shape, (where, name)
+        assert torch.equal(x, y), (where, name)
+
+
+def test_step_entry_matches_plain(env):
+    ar, at = actions(env.cfg.engine.width, 0)
+    ks = ps = env.reset(3)
+    before = cuda_tick.LAUNCHES["step"]
+    dones = 0
+    for k in range(T):
+        ks, kr, kd = env.step(ks, ar[k], at[k])
+        ps, pr, pd = step_plain(env.cfg, ps, ar[k], at[k])
+        assert_bits_equal(ks, ps, f"tick {k}")
+        assert torch.equal(kr, pr) and torch.equal(kd, pd), k
+        dones += int(kd.sum())
+    assert cuda_tick.LAUNCHES["step"] - before == T
+    assert dones > 0
+    cuda_tick.raise_if_overflowed(ks.current_player.device)
+
+
+def test_rollout_entry_matches_plain(env):
+    start = env.reset(4)
+    acts = actions(env.cfg.engine.width, 1)
+    ker = cuda_tick.rollout(env.cfg, start, T, actions=acts)
+    ref = cuda_tick.rollout_plain(env.cfg, start, T, actions=acts)
+    assert_bits_equal(ker, ref, "replayed")
+    assert int((ker.rounds_played - start.rounds_played).sum()) > 0
+    base = torch.tensor([17, 3], dtype=torch.int64)
+    ker = cuda_tick.rollout(env.cfg, start, T, base_key=base, block_games=64)
+    ref = cuda_tick.rollout_plain(env.cfg, start, T, base_key=base,
+                                  block_games=64)
+    assert_bits_equal(ker, ref, "random actions")
