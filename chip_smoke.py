@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline OLD_ENGINE_TICK_CU]
 
 Builds the engine tick kernel (drl_tetris_tpu_torch/csrc/engine_tick.cu)
 with nvcc, holds both of its entries bit for bit against their plain
 PyTorch version on the card, drives the port's two paths through the
 entry points a user calls, and times the kernels:
 
-1. build   nvcc into build/torch_kernels/ (seconds and ptxas report);
+1. build   nvcc into build/torch_kernels/ (seconds; ptxas registers, stack
+   frame and spills per kernel);
 2. kernel vs plain, every state leaf equal:
    - the T-tick entry with replayed actions (1024 games x 64 ticks),
    - the T-tick entry with in-kernel random actions (block_games 128),
-   - the one-tick entry over 64 ticks, with reward and done;
+   - the one-tick entry over 64 ticks, with reward and done,
+   - both entries at the kernel's limits (height 32, width 25, garbage
+     cap 64) from a start state with crowded garbage FIFOs, and at a
+     ragged game count (1001 games: the last CUDA block of 4 games holds
+     one, so 3 of its warps return early), with replayed actions;
 3. the self-play path (the acting loop of training): make_rollout_fn with
    TetrisVectorEnv(EnvConfig(), 1024) and PPONet(ModelConfig()) at full
    width in bfloat16, weights drawn from a numpy seed, horizon 64.  The
@@ -21,17 +26,25 @@ entry points a user calls, and times the kernels:
    agrees with the CPU on a few boards;
 4. the engine path (the random-policy throughput run): the T-tick entry
    at 4096 boards with in-kernel random actions;
-5. times: kernel, plain version and memory bound of each entry at the
-   shape its path gives it (the timed kernel and plain outputs are held
-   equal too), the rollout's env-steps/s.
+5. times: kernel, plain version and bound of each entry at the shape its
+   path gives it (the timed kernel and plain outputs are held equal too),
+   the rollout's env-steps/s.  The bound is the larger of the bytes side
+   (state read and written once over the memory rate) and the operations
+   side (tick_int_ops over a derived int32 rate: SMs x 64 INT32 lanes x
+   the SM's maximum clock from nvidia-smi).  With ``--baseline``, an
+   earlier engine_tick.cu with the same C interface is built too and
+   timed in turns with the current one (new, old, old, new) at the same
+   shapes.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits non-zero without that line; so does a machine with
 no CUDA device.  A copy of the results goes to chiprun_out/chip_smoke.json.
 """
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,10 +54,16 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate (data sheet)
+INT32_LANES_PER_SM = 64            # INT32 lanes per SM per clock (Hopper
+                                   # white paper); a derived rate, not a
+                                   # published peak
 SOURCE = "drl_tetris_tpu_torch/csrc/engine_tick.cu"
 REPLACES = "drl_tetris_tpu/engine/pallas_tick.py:262"
 N_SLICE, HORIZON = 1024, 64        # training geometry (bench.py:211)
 N_ENGINE, T_ENGINE = 4096, 100     # engine throughput boards (bench.py:1)
+N_RAGGED, T_EXTRA = 1001, 48       # ragged game count (its last block of 4
+                                   # games has 1); ticks of the extra
+                                   # comparisons
 DEV = "cuda"
 
 
@@ -60,27 +79,6 @@ def card_line():
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
-
-
-def max_abs_err(a, b):
-    """Largest |a - b| over every leaf of two state trees (0 == bit
-    exact: integer leaves compare their bit patterns)."""
-    from drl_tetris_tpu_torch.engine.core import tree_leaves
-    worst = 0.0
-    for (name, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)):
-        if x.shape != y.shape or x.dtype != y.dtype:
-            raise AssertionError(f"leaf {name}: {x.shape}/{x.dtype} vs "
-                                 f"{y.shape}/{y.dtype}")
-        if x.dtype == torch.float32:
-            if torch.equal(x.view(torch.int32), y.view(torch.int32)):
-                continue
-            e = (x.double() - y.double()).abs().nan_to_num(float("inf"))
-            # bits differ even where values are equal (-0.0, NaN payloads)
-            worst = max(worst, e.max().item(), 2.0 ** -149)
-        else:
-            e = (x.long() - y.long()).abs().max().item()
-            worst = max(worst, float(e))
-    return worst
 
 
 def state_bytes(state):
@@ -105,39 +103,72 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def phase_build(results, card):
+def ptxas_report(report):
+    """{kernel: {registers, stack, spill_stores, spill_loads}} from
+    nvcc -Xptxas -v."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def build_and_report(source, tag):
     from drl_tetris_tpu_torch.engine import cuda_tick
     t0 = time.perf_counter()
-    path, report = cuda_tick.build()
+    path, report = cuda_tick.build(source)
     secs = time.perf_counter() - t0
-    log(f"[build] nvcc {' '.join(cuda_tick.NVCC_FLAGS)} -> {path} "
-        f"in {secs:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build] {line.strip()}")
-    results["build_s"] = secs
+    log(f"[build{tag}] nvcc {' '.join(cuda_tick.NVCC_FLAGS)} {source} -> "
+        f"{path} in {secs:.1f} s")
+    regs = ptxas_report(report)
+    for name, r in regs.items():
+        log(f"[build{tag}] {name}: {r.get('registers')} registers, "
+            f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
+            f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
+    return path, secs, regs
+
+
+def phase_build(results, card, baseline=None):
+    """Build the kernel, and the baseline source when given (returns its
+    library)."""
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    _, secs, regs = build_and_report(cuda_tick.SOURCE, "")
+    if not regs:
+        raise AssertionError("no ptxas report for the kernel")
+    results.update(build_s=secs, ptxas=regs)
+    if baseline:
+        path, _, regs = build_and_report(baseline, " baseline")
+        results["baseline_ptxas"] = regs
+        return cuda_tick.open_library(path)
+    return None
 
 
 def phase_kernel_vs_plain(results, card):
     """Both entries against the plain version on CUDA tensors."""
     from drl_tetris_tpu_torch.engine import cuda_tick
-    from drl_tetris_tpu_torch.env.env import (EnvConfig, TetrisVectorEnv,
-                                              step_plain)
+    from drl_tetris_tpu_torch.engine.checks import (compare_entries, crowded,
+                                                    max_abs_err,
+                                                    replayed_actions)
+    from drl_tetris_tpu_torch.engine.core import EngineConfig
+    from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
     cfg = EnvConfig()
-    env = TetrisVectorEnv(cfg, N_SLICE, device=DEV)
-    start = env.reset(11)
-    rs = np.random.RandomState(0)
-    ar = torch.from_numpy(rs.randint(0, 4, (HORIZON, N_SLICE)).astype(
-        np.int32)).to(DEV)
-    at = torch.from_numpy(rs.randint(0, cfg.engine.width,
-                                     (HORIZON, N_SLICE)).astype(
-        np.int32)).to(DEV)
-    errs = {}
-
-    ker = cuda_tick.rollout(cfg, start, HORIZON, actions=(ar, at))
-    ref = cuda_tick.rollout_plain(cfg, start, HORIZON, actions=(ar, at))
-    errs["rollout_replayed"] = max_abs_err(ker, ref)
-    played = int((ker.rounds_played - start.rounds_played).sum())
+    start = TetrisVectorEnv(cfg, N_SLICE, device=DEV).reset(11)
+    ar, at = replayed_actions(cfg, HORIZON, N_SLICE, 0, DEV)
+    errs, events = {}, {}
+    errs["rollout_replayed"], errs["step"], n_done, played = \
+        compare_entries(cfg, start, ar, at)
+    events["default"] = (n_done, played)
 
     base = torch.tensor([7, 2024], dtype=torch.int64)
     ker = cuda_tick.rollout(cfg, start, HORIZON, base_key=base,
@@ -146,27 +177,35 @@ def phase_kernel_vs_plain(results, card):
                                   block_games=128)
     errs["rollout_random"] = max_abs_err(ker, ref)
 
-    ks, ps = start, start
-    step_err, n_done = 0.0, 0
-    for tick in range(HORIZON):
-        ks, kr, kd = cuda_tick.step(cfg, ks, ar[tick], at[tick])
-        ps, pr, pd = step_plain(cfg, ps, ar[tick], at[tick])
-        step_err = max(step_err, max_abs_err(ks, ps),
-                       (kr - pr).abs().max().item(),
-                       float((kd != pd).sum().item()))
-        n_done += int(kd.sum())
-    errs["step"] = step_err
+    # the kernel's limits: every lane holds a row and a second FIFO slot
+    lim = EnvConfig(engine=EngineConfig(height=32, width=25, garbage_cap=64))
+    start = crowded(lim, TetrisVectorEnv(lim, N_SLICE, device=DEV).reset(12),
+                    12)
+    ar, at = replayed_actions(lim, T_EXTRA, N_SLICE, 1, DEV)
+    errs["rollout_limits"], errs["step_limits"], n_done, played = \
+        compare_entries(lim, start, ar, at)
+    events["limits"] = (n_done, played)
+
+    # a game count that is not a multiple of the games per CUDA block: the
+    # last block's warps past n_games return
+    start = TetrisVectorEnv(cfg, N_RAGGED, device=DEV).reset(13)
+    ar, at = replayed_actions(cfg, T_EXTRA, N_RAGGED, 2, DEV)
+    errs["rollout_ragged"], errs["step_ragged"], n_done, played = \
+        compare_entries(cfg, start, ar, at)
+    events["ragged"] = (n_done, played)
+
     cuda_tick.raise_if_overflowed(start.current_player.device)
     log(f"[kernel vs plain] {card}: max |kernel - plain| over every leaf: "
-        f"{errs}; rounds finished {played} (replayed), dones {n_done} "
-        f"(one-tick)")
+        f"{errs}; (dones of the one-tick entry, rounds finished by the "
+        f"T-tick entry): {events}")
     if any(v != 0.0 for v in errs.values()):
         raise AssertionError(f"kernel disagrees with the plain version: "
                              f"{errs}")
-    if played == 0 or n_done == 0:
-        raise AssertionError("no round finished: the comparison did not "
+    if any(d == 0 or p == 0 for d, p in events.values()):
+        raise AssertionError("a comparison finished no round: it did not "
                              "reach round resets")
     results["errs"] = errs
+    results["events"] = events
 
 
 def phase_selfplay(results, card):
@@ -174,6 +213,7 @@ def phase_selfplay(results, card):
     from drl_tetris_tpu_torch.algos.rollout import (make_policy_fn,
                                                     make_rollout_fn)
     from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.engine.checks import max_abs_err
     from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
     from drl_tetris_tpu_torch.models.convert import seeded_state_dict
     from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
@@ -241,6 +281,7 @@ def phase_selfplay(results, card):
     env_ms = cuda_ms(lambda: env.step(st, r0, t0_), 50)
     net_err = net_card_vs_cpu(env, st0)
     sps = N * T / secs
+    results["selfplay_reset_share"] = grew / (N * T)
     log(f"[self-play] {card}: {N} games x {T} ticks in {secs:.3f} s = "
         f"{sps:.0f} env-steps/s ({secs / T * 1e3:.2f} ms/tick: policy "
         f"{policy_ms:.2f} ms, env step {env_ms:.3f} ms); rounds +{grew}, "
@@ -298,17 +339,81 @@ def phase_engine(results, card):
     log(f"[engine] {card}: {N_ENGINE} boards x {T_ENGINE} ticks, rounds "
         f"+{grew}, T-tick launches {launches['rollout']}")
     results["rollout_launches"] = launches["rollout"]
+    results["engine_reset_share"] = grew / (N_ENGINE * T_ENGINE)
 
 
-def phase_times(results, card):
+THREEFRY_OPS = 79   # threefry2x32: key word 2 + 2 adds + 20 x (add, rotate,
+                    # xor) + 5 x 3 key injections (a rotate is one SHF)
+
+
+def tick_int_ops(cfg, reset_share, action_draw):
+    """32-bit integer and logic operations of one game-tick on the common
+    path (the acting player's macro, both players' finish phase), counted
+    term by term from the tick's code; loops that stop early are counted
+    at the trip count of a typical tick, low rather than high.  Float32
+    operations (bag weights, payout) are a few dozen and run on the FP32
+    units; they are not counted."""
+    e = cfg.engine
+    H, W, CAP = e.height, e.width, e.garbage_cap
+    draw = 2 * THREEFRY_OPS + 3          # uniform01(fold_in(key, counter))
+    ext = 2 * H                          # (occ << 4) | walls, per row
+    probe = 4 * 4                        # 4 piece rows x (index, shift, and, test)
+    macro = (ext
+             + 1.5 * (8 + 3 * 8 + probe)  # rotations: mean r of 1.5, lookup,
+                                          # range checks, the first kick
+             + (W + 2) * (probe + 3)      # left and right slides: ~W+2 probes
+             + ext + 4 * (H // 2) * 3     # hard drop: 4 rows scan ~H/2 rows
+             + 4 * 5 + 4)                 # add the piece
+    finish = (6 * H                       # clear_lines: full test, move
+              + 6                         # send_lines
+              + 8 + draw + 4 + ext + probe  # new piece: copy, draw, spawn test
+              + 40                        # delay check, FIFO front, combo
+              + 5)                        # reward, snapshot, counts
+    tick = (2 * THREEFRY_OPS              # the env key's split2
+            + macro + 2 * finish + 15)    # both players; reward and flip
+    reset = (2 * THREEFRY_OPS + 2 * draw  # fold_in pair, >= 2 piece draws
+             + 2 * (2 * H + 2 * CAP + 25))  # restart both players
+    ops = tick + reset_share * reset
+    if action_draw:                      # fold_in, fold_in, random_bits
+        ops += 3 * THREEFRY_OPS + 4
+    return ops
+
+
+def int32_ops_per_s():
+    """Derived int32 rate: SMs x INT32 lanes per SM x the SM's maximum
+    clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6, sms, mhz
+
+
+def in_turns(fns, n):
+    """Mean time of each fn over two turns, in the order a, b, b, a."""
+    order = list(range(len(fns))) + list(range(len(fns)))[::-1]
+    got = [[] for _ in fns]
+    for i in order:
+        got[i].append(cuda_ms(fns[i], n))
+    return [sum(g) / len(g) for g in got]
+
+
+def phase_times(results, card, baseline=None):
     """Kernel, plain and bound times of both entries at their paths'
-    shapes."""
+    shapes; with a baseline library, its times in turns with the
+    kernel's."""
     from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.engine.checks import max_abs_err
     from drl_tetris_tpu_torch.env.env import (EnvConfig, TetrisVectorEnv,
                                               step_plain)
     cfg = EnvConfig()
-    lib = cuda_tick.load()
+    libs = [cuda_tick.load()] + ([baseline] if baseline else [])
     stream = torch.cuda.current_stream().cuda_stream
+    int_rate, sms, mhz = int32_ops_per_s()
 
     # one-tick entry, N = 1024: kernel alone on fixed buffers; the timed
     # launches' outputs are held against the timed plain call's
@@ -319,20 +424,25 @@ def phase_times(results, card):
     t = torch.from_numpy(rs.randint(0, cfg.engine.width, N_SLICE).astype(
         np.int32)).to(DEV)
     args, keep, (outs, k_rew, k_done) = cuda_tick.step_args(cfg, st, r, t)
-    launch = lambda: cuda_tick.check(lib.engine_tick_step(*args, stream),
-                                     "engine_tick_step")
-    cuda_ms(launch, 5)
-    step_ms = cuda_ms(launch, 200)
+    launches = [lambda lib=lib: cuda_tick.check(
+        lib.engine_tick_step(*args, stream), "engine_tick_step")
+        for lib in libs]
+    for f in launches:
+        cuda_ms(f, 5)
+    step_times = in_turns(launches, 200)
+    launches[0]()                        # the kernel's outputs last
     wrap_ms = cuda_ms(lambda: cuda_tick.step(cfg, st, r, t), 200)
     plain = {}
     step_plain(cfg, st, r, t)
     step_plain_ms = cuda_ms(
         lambda: plain.update(out=step_plain(cfg, st, r, t)), 10)
     p_st, p_rew, p_done = plain["out"]
-    step_err = max(max_abs_err(cuda_tick.unflatten(st, outs), p_st),
+    step_err = max(max_abs_err(cuda_tick.unflatten(outs), p_st),
                    (k_rew - p_rew).abs().max().item(),
                    float((k_done != p_done).sum().item()))
     step_bytes = 2 * state_bytes(st) + 2 * 4 * N_SLICE + 5 * N_SLICE
+    step_ops = N_SLICE * tick_int_ops(cfg, results["selfplay_reset_share"],
+                                      False)
     del keep
 
     # T-tick entry, 4096 boards x T_ENGINE ticks, random actions
@@ -341,16 +451,21 @@ def phase_times(results, card):
     base = [5, 6]
     args, keep, outs = cuda_tick.rollout_args(cfg, st, T_ENGINE, None, base,
                                               128)
-    launch = lambda: cuda_tick.check(lib.engine_tick_rollout(*args, stream),
-                                     "engine_tick_rollout")
-    cuda_ms(launch, 1)
-    roll_ms = cuda_ms(launch, 5)
+    launches = [lambda lib=lib: cuda_tick.check(
+        lib.engine_tick_rollout(*args, stream), "engine_tick_rollout")
+        for lib in libs]
+    for f in launches:
+        cuda_ms(f, 1)
+    roll_times = in_turns(launches, 5)
+    launches[0]()
     bk = torch.tensor(base, dtype=torch.int64)
     roll_plain_ms = cuda_ms(lambda: plain.update(out=cuda_tick.rollout_plain(
         cfg, st, T_ENGINE, base_key=bk, block_games=128)), 1)
-    roll_err = max_abs_err(cuda_tick.unflatten(st, outs), plain["out"])
+    roll_err = max_abs_err(cuda_tick.unflatten(outs), plain["out"])
     del keep
     roll_bytes = 2 * state_bytes(st)
+    roll_ops = N_ENGINE * T_ENGINE * tick_int_ops(
+        cfg, results["engine_reset_share"], True)
     cuda_tick.raise_if_overflowed(st.current_player.device)
     log(f"[times] {card}: max |kernel - plain| at the timed shapes: "
         f"one-tick {step_err}, T-tick {roll_err}")
@@ -358,35 +473,67 @@ def phase_times(results, card):
         raise AssertionError("kernel disagrees with the plain version at "
                              "the timed shapes")
 
+    def bound(n_bytes, n_ops):
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        o_ms = n_ops / int_rate * 1e3
+        return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", \
+            b_ms, o_ms
+
+    step_ms, roll_ms = step_times[0], roll_times[0]
+    sb, sby, sb_bytes, sb_ops = bound(step_bytes, step_ops)
+    rb, rby, rb_bytes, rb_ops = bound(roll_bytes, roll_ops)
+    log(f"[times] {card}: int32 rate {int_rate:.4g} op/s derived from {sms} "
+        f"SMs x {INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz (clocks.max.sm)")
+    log(f"[times] {card}: bound of the one-tick entry: bytes "
+        f"{step_bytes} B -> {sb_bytes:.6f} ms, operations "
+        f"{step_ops:.4g} ({step_ops / N_SLICE:.0f} per game-tick) -> "
+        f"{sb_ops:.6f} ms; bound by {sby}")
+    log(f"[times] {card}: bound of the T-tick entry: bytes {roll_bytes} B "
+        f"-> {rb_bytes:.6f} ms, operations {roll_ops:.4g} "
+        f"({roll_ops / (N_ENGINE * T_ENGINE):.0f} per game-tick) -> "
+        f"{rb_ops:.6f} ms; bound by {rby}")
     kernels = [
         dict(name="engine_tick_step", route="cuda", source=SOURCE,
              replaces=REPLACES, launches=results["step_launches"],
-             max_abs_err=max(results["errs"]["step"], step_err), ms=step_ms,
-             plain_ms=step_plain_ms,
-             bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             max_abs_err=max([results["errs"][k] for k in results["errs"]
+                              if k.startswith("step")] + [step_err]),
+             ms=step_ms, plain_ms=step_plain_ms, bound_ms=sb, bound_by=sby,
              library_ms=None, path="self-play rollout (make_rollout_fn)",
-             shape=f"{N_SLICE} games x 1 tick", wrapper_ms=wrap_ms),
+             shape=f"{N_SLICE} games x 1 tick", wrapper_ms=wrap_ms,
+             bytes_ms=sb_bytes, ops_ms=sb_ops),
         dict(name="engine_tick_rollout", route="cuda", source=SOURCE,
              replaces=REPLACES, launches=results["rollout_launches"],
-             max_abs_err=max(results["errs"]["rollout_replayed"],
-                             results["errs"]["rollout_random"], roll_err),
-             ms=roll_ms, plain_ms=roll_plain_ms,
-             bound_ms=roll_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             max_abs_err=max([results["errs"][k] for k in results["errs"]
+                              if k.startswith("rollout")] + [roll_err]),
+             ms=roll_ms, plain_ms=roll_plain_ms, bound_ms=rb, bound_by=rby,
              library_ms=None, path="engine random-policy run (rollout)",
-             shape=f"{N_ENGINE} games x {T_ENGINE} ticks"),
+             shape=f"{N_ENGINE} games x {T_ENGINE} ticks",
+             bytes_ms=rb_bytes, ops_ms=rb_ops),
     ]
     log(f"[times] {card}: one-tick entry {step_ms:.4f} ms/launch at "
         f"{N_SLICE} games ({N_SLICE / step_ms * 1e3:.0f} env-steps/s; "
         f"wrapper call {wrap_ms:.4f} ms), plain {step_plain_ms:.2f} ms")
-    log(f"[times] {card}: T-tick entry {roll_ms:.3f} ms for {N_ENGINE} "
+    log(f"[times] {card}: T-tick entry {roll_ms:.4f} ms for {N_ENGINE} "
         f"boards x {T_ENGINE} ticks = "
         f"{N_ENGINE * T_ENGINE / roll_ms * 1e3:.0f} env-steps/s, plain "
         f"{roll_plain_ms:.1f} ms")
+    if baseline:
+        log(f"[times] {card}: baseline source, in turns with the kernel "
+            f"(new, old, old, new): one-tick {step_times[1]:.4f} ms vs "
+            f"{step_ms:.4f} ms ({step_times[1] / step_ms:.2f}x), T-tick "
+            f"{roll_times[1]:.4f} ms vs {roll_ms:.4f} ms "
+            f"({roll_times[1] / roll_ms:.2f}x)")
+        kernels[0]["baseline_ms"] = step_times[1]
+        kernels[1]["baseline_ms"] = roll_times[1]
     results["engine_sps"] = N_ENGINE * T_ENGINE / roll_ms * 1e3
     return kernels
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", help="an earlier engine_tick.cu with the "
+                    "same C interface, timed in turns with the kernel")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -406,12 +553,12 @@ def main():
     torch.cuda.set_device(0)
     results = {"card": card}
     t0 = time.perf_counter()
-    for phase in (phase_build, phase_kernel_vs_plain, phase_selfplay,
-                  phase_engine):
+    baseline = phase_build(results, card, opts.baseline)
+    for phase in (phase_kernel_vs_plain, phase_selfplay, phase_engine):
         t = time.perf_counter()
         phase(results, card)
         log(f"[{phase.__name__}] done in {time.perf_counter() - t:.1f} s")
-    kernels = phase_times(results, card)
+    kernels = phase_times(results, card, baseline)
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t0
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -19,6 +19,12 @@ source), through two host arrays that the C entry copies into the kernel's
 by-value parameter structs.  Outputs are fresh tensors: the entries are
 functional like the JAX ones.
 
+The one-tick entry runs once per env step of the self-play rollout, so its
+host side is kept short: the leaves are read by name and each leaf's
+pointer once, the per-config words and the per-shape leaf specs are
+cached, and the outputs are 45 ``empty_like`` calls (cutting one flat
+buffer into 45 typed views costs more host time per call).
+
 ``LAUNCHES`` counts kernel launches per entry (the plain path never counts).
 A combo count past the payout table sets a flag word on the device:
 ``rollout`` checks it after its launch, and callers of ``step`` check it
@@ -28,7 +34,7 @@ for the device every tick).
 from __future__ import annotations
 
 import ctypes
-import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -39,7 +45,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from drl_tetris_tpu_torch.engine.core import ROW_MASKS, SPAWN_ROT, tree_leaves
+from drl_tetris_tpu_torch.engine.core import (ROW_MASKS, SPAWN_ROT,
+                                              EngineState, PlayerState)
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine.step import COMBO_POW_BITS, DUR_SLOPE
 from drl_tetris_tpu_torch.env.env import EnvConfig, EnvState, step_plain
@@ -66,9 +73,16 @@ LEAF_NAMES = (
 )
 _BOOL = {"lockdown", "dead", "round_over"}
 _FLOAT = {"incoming_lines", "cogp"}
+_N_PLAYER = LEAF_NAMES.index("round_over")      # PlayerState leaves first
+_PTRS = ctypes.c_int64 * len(LEAF_NAMES)
+_PLAYER_LEAVES = LEAF_NAMES[:_N_PLAYER]
 
 
-def _leaf_spec(cfg: EnvConfig):
+@functools.lru_cache(maxsize=64)
+def _leaf_spec(cfg: EnvConfig, n: int):
+    """(name, dtype, shape, pair) per leaf for n games; ``pair``: the
+    kernel reads both players' words of an (N, 2) 32-bit leaf as one
+    8-byte word, so its pointer must be 8-byte aligned."""
     e = cfg.engine
     trail = {"occ": (2, e.height), "garb": (2, e.height), "cur_rows": (2, 4),
              "g_count": (2, e.garbage_cap), "g_delay": (2, e.garbage_cap),
@@ -79,53 +93,62 @@ def _leaf_spec(cfg: EnvConfig):
     for name in LEAF_NAMES:
         dt = (torch.bool if name in _BOOL else
               torch.float32 if name in _FLOAT else torch.int32)
-        spec.append((name, dt, trail.get(name, (2,))))
-    return spec
+        shape = (n,) + trail.get(name, (2,))
+        spec.append((name, dt, torch.Size(shape),
+                     shape[1:] == (2,) and dt != torch.bool))
+    return tuple(spec)
 
 
+@functools.lru_cache(maxsize=64)
 def _config_words(cfg: EnvConfig) -> np.ndarray:
-    """icfg of the C entries (``enum CfgWord``)."""
+    """icfg of the C entries (``enum CfgWord``); cached, read-only."""
     e = cfg.engine
     if e.n_players != 2:
         raise ValueError("the engine kernel runs two-player games")
     if e.height > MAX_H or e.garbage_cap > MAX_CAP:
         raise ValueError(f"kernel limits: height <= {MAX_H}, "
                          f"garbage_cap <= {MAX_CAP}")
-    return np.array([e.height, e.width, e.garbage_cap, e.max_seed_rerolls,
-                     e.garbage_initial_delay, e.garbage_add_delay,
-                     e.garbage_freeze_delay, e.combo_line_mult,
-                     e.combo_static_mult, e.lockdown_ms,
-                     cfg.time_elapsed_each_action, int(cfg.extra_rewards),
-                     int(e.only_zs), *e.piece_map], dtype=np.int32)
+    words = np.array([e.height, e.width, e.garbage_cap, e.max_seed_rerolls,
+                      e.garbage_initial_delay, e.garbage_add_delay,
+                      e.garbage_freeze_delay, e.combo_line_mult,
+                      e.combo_static_mult, e.lockdown_ms,
+                      cfg.time_elapsed_each_action, int(cfg.extra_rewards),
+                      int(e.only_zs), *e.piece_map], dtype=np.int32)
+    words.flags.writeable = False
+    return words
 
 
 def state_leaves(cfg: EnvConfig, state: EnvState):
-    """The state's leaves in kernel order, checked for device, dtype, shape
-    and contiguity."""
-    leaves = [t for _, t in tree_leaves(state)]
-    if len(leaves) != len(LEAF_NAMES):
-        raise ValueError("EnvState does not match the kernel's leaf list")
-    n = state.current_player.shape[0]
-    dev = state.current_player.device
-    for (name, dt, trail), t in zip(_leaf_spec(cfg), leaves):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != (n,) + trail \
-                or not t.is_contiguous():
+    """(leaves, pointers): the state's leaves in kernel order, checked for
+    device, dtype, shape, contiguity and alignment, and their device
+    pointers as the C entries take them."""
+    eng = state.engine
+    fields = vars(eng.players)
+    leaves = [fields[k] for k in _PLAYER_LEAVES] + [
+        eng.round_over, eng.last_winner, state.current_player, state.key,
+        state.rounds_played]
+    dev = state.current_player.get_device()
+    spec = _leaf_spec(cfg, state.current_player.shape[0])
+    ptrs = [t.data_ptr() for t in leaves]
+    for (name, dt, shape, pair), t, ptr in zip(spec, leaves, ptrs):
+        if t.dtype is not dt or t.shape != shape or not t.is_contiguous() \
+                or t.get_device() != dev or (pair and ptr & 7):
             raise ValueError(
                 f"leaf {name}: got {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()}); the kernel takes "
-                f"contiguous {dt} {(n,) + trail} on {dev}")
-    return leaves
+                f"(contiguous={t.is_contiguous()}, address {t.data_ptr()}); "
+                f"the kernel takes contiguous {dt} {tuple(shape)} on "
+                f"{state.current_player.device}, 8-byte aligned")
+    return leaves, _PTRS(*ptrs)
 
 
-def unflatten(like: EnvState, leaves) -> EnvState:
-    it = iter(leaves)
-
-    def rebuild(tree):
-        if dataclasses.is_dataclass(tree):
-            return type(tree)(**{f.name: rebuild(getattr(tree, f.name))
-                                 for f in dataclasses.fields(tree)})
-        return next(it)
-    return rebuild(like)
+def unflatten(leaves) -> EnvState:
+    """The EnvState of leaves in kernel order."""
+    ps = PlayerState(**dict(zip(_PLAYER_LEAVES, leaves)))
+    rest = leaves[_N_PLAYER:]
+    return EnvState(engine=EngineState(players=ps, round_over=rest[0],
+                                       last_winner=rest[1]),
+                    current_player=rest[2], key=rest[3],
+                    rounds_played=rest[4])
 
 
 _DEVICE_TABLES = {}
@@ -156,14 +179,14 @@ def raise_if_overflowed(device) -> None:
 
 
 def _ptr_array(tensors):
-    return (ctypes.c_int64 * len(tensors))(*[t.data_ptr() for t in tensors])
+    return _PTRS(*[t.data_ptr() for t in tensors])
 
 
 def step_args(cfg: EnvConfig, state: EnvState, r, t):
     """Validate, allocate the outputs and marshal the C arguments of the
     one-tick entry (without the stream).  Returns (args, keep, outputs):
     ``keep`` must stay alive until the call returns."""
-    leaves = state_leaves(cfg, state)
+    leaves, pin = state_leaves(cfg, state)
     n = leaves[0].shape[0]
     dev = leaves[0].device
     for a in (r, t):
@@ -176,7 +199,7 @@ def step_args(cfg: EnvConfig, state: EnvState, r, t):
     done = torch.empty(n, dtype=torch.bool, device=dev)
     tab, flags = device_tables(dev)
     icfg = _config_words(cfg)
-    pin, pout = _ptr_array(leaves), _ptr_array(outs)
+    pout = _ptr_array(outs)
     args = (icfg.ctypes.data, cfg.reward_base_weight, cfg.reward_combo_weight,
             DUR_SLOPE, ctypes.addressof(pin), ctypes.addressof(pout),
             r.data_ptr(), t.data_ptr(), reward.data_ptr(), done.data_ptr(),
@@ -188,7 +211,7 @@ def step_args(cfg: EnvConfig, state: EnvState, r, t):
 def rollout_args(cfg: EnvConfig, state: EnvState, n_ticks: int,
                  actions, base_key, block_games: int):
     """As step_args, for the T-tick entry."""
-    leaves = state_leaves(cfg, state)
+    leaves, pin = state_leaves(cfg, state)
     n = leaves[0].shape[0]
     dev = leaves[0].device
     if actions is not None:
@@ -205,7 +228,7 @@ def rollout_args(cfg: EnvConfig, state: EnvState, n_ticks: int,
     outs = [torch.empty_like(x) for x in leaves]
     tab, flags = device_tables(dev)
     icfg = _config_words(cfg)
-    pin, pout = _ptr_array(leaves), _ptr_array(outs)
+    pout = _ptr_array(outs)
     args = (icfg.ctypes.data, cfg.reward_base_weight, cfg.reward_combo_weight,
             DUR_SLOPE, ctypes.addressof(pin), ctypes.addressof(pout),
             n_ticks, pa, pt, k0, k1, block_games, tab.data_ptr(),
@@ -240,35 +263,44 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> Tuple[Path, str]:
-    """Compile csrc/engine_tick.cu into build/torch_kernels/ unless the
-    library for this exact source exists.  Returns (library path, the
-    compiler's report: ptxas registers, spills and stack per kernel)."""
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
+def build(source: Path = SOURCE) -> Tuple[Path, str]:
+    """Compile ``source`` (csrc/engine_tick.cu) into build/torch_kernels/
+    unless the library for this exact source exists.  Returns (library
+    path, the compiler's report: ptxas registers, spills and stack per
+    kernel)."""
+    digest = hashlib.sha1(Path(source).read_bytes()).hexdigest()[:12]
     out = BUILD_DIR / f"libengine_tick-{digest}.so"
+    log = out.with_suffix(".ptxas.txt")
     if out.exists():
-        return out, ""
+        return out, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           str(SOURCE)]
+           str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    log.write_text(res.stderr)
     os.replace(tmp, out)
     return out, res.stderr
 
 
+def open_library(path):
+    """A built library of the kernel, with its entries' ctypes
+    signatures."""
+    lib = ctypes.CDLL(str(path))
+    declare(lib.engine_tick_step, lib.engine_tick_rollout, True)
+    lib.engine_tick_n_leaves.restype = ctypes.c_int
+    if lib.engine_tick_n_leaves() != len(LEAF_NAMES):
+        raise RuntimeError("kernel leaf count does not match LEAF_NAMES")
+    return lib
+
+
 def load():
-    """The built library, with its entries' ctypes signatures."""
+    """The library built from csrc/engine_tick.cu."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()[0]))
-        declare(lib.engine_tick_step, lib.engine_tick_rollout, True)
-        lib.engine_tick_n_leaves.restype = ctypes.c_int
-        if lib.engine_tick_n_leaves() != len(LEAF_NAMES):
-            raise RuntimeError("kernel leaf count does not match LEAF_NAMES")
-        _LIB = lib
+        _LIB = open_library(build()[0])
     return _LIB
 
 
@@ -300,7 +332,7 @@ def step(cfg: EnvConfig, state: EnvState, rotations, translations
         check(lib.engine_tick_step(*args, stream), "engine_tick_step")
     LAUNCHES["step"] += 1
     del keep
-    return unflatten(state, outs), reward, done
+    return unflatten(outs), reward, done
 
 
 def random_actions(cfg: EnvConfig, base_key, tick: int, n: int,
@@ -321,11 +353,12 @@ def random_actions(cfg: EnvConfig, base_key, tick: int, n: int,
 
 
 def _block_games(n: int, block_games: int, actions, base_key) -> int:
-    """The action stream's block size for n games (capped at n)."""
+    """The random action stream's block size for n games (capped at n;
+    replayed actions do not read it)."""
     if (actions is None) == (base_key is None):
         raise ValueError("pass exactly one of actions and base_key")
     block_games = min(block_games, n)
-    if n % block_games:
+    if base_key is not None and n % block_games:
         raise ValueError(f"n_games {n} is not a multiple of block_games "
                          f"{block_games}")
     return block_games
@@ -375,4 +408,4 @@ def rollout(cfg: EnvConfig, state: EnvState, n_ticks: int, *,
     LAUNCHES["rollout"] += 1
     del keep
     raise_if_overflowed(dev)
-    return unflatten(state, outs)
+    return unflatten(outs)

@@ -1,9 +1,10 @@
 """The engine tick kernel (csrc/engine_tick.cu) against its plain PyTorch
 version on the card: every state leaf, reward and done flag bit for bit.
 
-These tests need an NVIDIA GPU and nvcc, and skip elsewhere.  On a machine
-with a card and without JAX, run them without the suite's conftest (which
-imports JAX):
+These tests need an NVIDIA GPU and nvcc, and skip elsewhere.  They share
+their inputs and comparison with chip_smoke.py (engine/checks.py).  On a
+machine with a card and without JAX, run them without the suite's conftest
+(which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -19,7 +20,9 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 from drl_tetris_tpu_torch.engine import cuda_tick  # noqa: E402
-from drl_tetris_tpu_torch.engine.core import tree_leaves  # noqa: E402
+from drl_tetris_tpu_torch.engine.checks import (compare_entries,  # noqa: E402
+                                                crowded, replayed_actions)
+from drl_tetris_tpu_torch.engine.core import EngineConfig, tree_leaves  # noqa: E402
 from drl_tetris_tpu_torch.env.env import (EnvConfig, TetrisVectorEnv,  # noqa: E402
                                           step_plain)
 
@@ -78,3 +81,29 @@ def test_rollout_entry_matches_plain(env):
     ref = cuda_tick.rollout_plain(env.cfg, start, T, base_key=base,
                                   block_games=64)
     assert_bits_equal(ker, ref, "random actions")
+
+
+EDGES = {
+    # name: (config, games, crowded start)
+    "limits": (EnvConfig(engine=EngineConfig(height=32, width=25,
+                                             garbage_cap=64)), N, True),
+    "ragged": (EnvConfig(), 1001, False),     # the last block holds 1 game
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_entries_match_plain_at(case):
+    """Both entries against the plain version with replayed actions: at the
+    kernel's limits (every lane a row and a second FIFO slot, from crowded
+    FIFOs) and at a game count that is not a multiple of the games per CUDA
+    block, so that warps past the last game return."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, n, crowd = EDGES[case]
+    start = TetrisVectorEnv(cfg, n, device="cuda").reset(9)
+    if crowd:
+        start = crowded(cfg, start, 9)
+    ar, at = replayed_actions(cfg, T, n, 3, "cuda")
+    roll_err, step_err, dones, played = compare_entries(cfg, start, ar, at)
+    assert roll_err == 0.0 and step_err == 0.0, (roll_err, step_err)
+    assert dones > 0 and played > 0

@@ -5,8 +5,8 @@ The JAX side of the engine kernel's function is the XLA ``env.step``
 (tests/test_pallas_tick.py holds the Pallas kernel equal to it).  Actions
 are replayed from a line-clearing policy so that line clears, combos,
 garbage sent and received, deaths and round resets all occur; the test
-asserts that each did.  A host (g++) build of the CUDA kernel's per-game
-code is held against the plain version on the same trajectory.
+asserts that each did.  A host (g++) build of the CUDA kernel's tick is
+held against the plain version on the same trajectory.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
@@ -16,6 +16,8 @@ from tests.test_torch_harness import (assert_state_equal, rekey_jax_cache,
 rekey_jax_cache()
 
 import ctypes  # noqa: E402
+import functools  # noqa: E402
+import hashlib  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
@@ -218,20 +220,33 @@ def test_env_step_matches_jax(trajectory):
 # The CUDA kernel's per-game code, built for the host
 # ---------------------------------------------------------------------------
 
-def host_kernel_lib(tmp_dir):
+@functools.lru_cache(maxsize=None)
+def host_kernel_lib():
     """Build csrc/engine_tick_host.cpp (which includes the kernel source
-    without __CUDACC__) with g++; None when no g++ is installed."""
+    without __CUDACC__, a warp's lanes as arrays) with g++, once per source:
+    the library goes to build/torch_kernels/ under the digest of both
+    files, so the test modules and workers of a run share one build.  None
+    when no g++ is installed."""
     gxx = shutil.which("g++")
     if gxx is None:
         return None
-    src = os.path.join(REPO, "drl_tetris_tpu_torch", "csrc",
-                       "engine_tick_host.cpp")
-    out = os.path.join(tmp_dir, "libengine_tick_host.so")
-    res = subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off",
-                          "-shared", "-fPIC", "-o", out, src],
-                         capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    lib = ctypes.CDLL(out)
+    csrc = os.path.join(REPO, "drl_tetris_tpu_torch", "csrc")
+    src = os.path.join(csrc, "engine_tick_host.cpp")
+    digest = hashlib.sha1()
+    for name in ("engine_tick.cu", "engine_tick_host.cpp"):
+        with open(os.path.join(csrc, name), "rb") as f:
+            digest.update(f.read())
+    out = (cuda_tick.BUILD_DIR /
+           f"libengine_tick_host-{digest.hexdigest()[:12]}.so")
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off",
+                              "-shared", "-fPIC", "-o", str(tmp), src],
+                             capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
     cuda_tick.declare(lib.engine_tick_host_step, lib.engine_tick_host_rollout,
                       with_stream=False)
     assert lib.engine_tick_host_n_leaves() == len(cuda_tick.LEAF_NAMES)
@@ -242,7 +257,7 @@ def host_step(lib, cfg, state, r, t):
     args, keep, (outs, reward, done) = cuda_tick.step_args(cfg, state, r, t)
     assert lib.engine_tick_host_step(*args) == 0
     del keep
-    return cuda_tick.unflatten(state, outs), reward, done
+    return cuda_tick.unflatten(outs), reward, done
 
 
 def host_rollout(lib, cfg, state, n_ticks, actions=None, base_key=None,
@@ -253,7 +268,7 @@ def host_rollout(lib, cfg, state, n_ticks, actions=None, base_key=None,
                                               base_key, block_games)
     assert lib.engine_tick_host_rollout(*args) == 0
     del keep
-    return cuda_tick.unflatten(state, outs)
+    return cuda_tick.unflatten(outs)
 
 
 def assert_torch_states_equal(a, b, where=""):
@@ -264,12 +279,12 @@ def assert_torch_states_equal(a, b, where=""):
                                    torch.nonzero(x != y)[:5].tolist())
 
 
-def test_host_kernel_matches_plain(trajectory, tmp_path):
-    """The kernel's per-game code (one thread's work, run on the host)
+def test_host_kernel_matches_plain(trajectory):
+    """The kernel's tick (one warp's work, its lanes run on the host)
     against the plain PyTorch tick: the one-tick entry tick by tick with
     reward and done, and the T-tick entry with replayed and with in-kernel
     random actions."""
-    lib = host_kernel_lib(str(tmp_path))
+    lib = host_kernel_lib()
     if lib is None:
         pytest.skip("no g++ to build the kernel's host form")
     (ar, at), start, final, _ = trajectory

@@ -7,8 +7,9 @@ Drives the port's acting loop (make_rollout_fn with TetrisVectorEnv and the
 full-width bfloat16 PPONet, weights from a numpy seed; 1024 games, the main
 path's width, over 8 ticks) under
 torch.profiler and prints: the wall time per tick, the device's busy share
-(the union of kernel intervals over the window), and the kernels that take
-most device time, grouped by name.  The full table goes to
+(the union of kernel intervals over the window), the engine tick kernel's
+time per tick and share, and the kernels that take most device time,
+grouped by name.  The full table goes to
 chiprun_out/torch_profile_selfplay.txt.  Needs a CUDA device and nvcc (the
 engine kernel is built on first use).
 """
@@ -91,6 +92,12 @@ def main():
           f"{share:.4f} of the window, {len(kernels) / TICKS:.1f} "
           f"kernels/tick, {total / TICKS / 1e3:.3f} ms kernel "
           f"time/tick")
+    engine_us = sum(us for name, us in by_name.items()
+                    if "step_kernel" in name)
+    print(f"[profile] engine tick kernel (step_kernel): "
+          f"{engine_us / TICKS / 1e3:.4f} ms/tick, {engine_us / total:.4f} "
+          f"of kernel time, {engine_us / (wall_s * 1e6):.4f} of the wall "
+          f"window")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[profile] {us / TICKS / 1e3:9.4f} ms/tick "
               f"{us / total:6.3f}  {name[:110]}")
