@@ -5,8 +5,8 @@
 
 Builds the engine tick kernel (drl_tetris_tpu_torch/csrc/engine_tick.cu)
 with nvcc, holds both of its entries bit for bit against their plain
-PyTorch version on the card, drives the port's two paths through the
-entry points a user calls, and times the kernels:
+PyTorch version on the card, drives the port's paths through the entry
+points a user calls, and times them:
 
 1. build   nvcc into build/torch_kernels/ (seconds; ptxas registers, stack
    frame and spills per kernel);
@@ -24,9 +24,22 @@ entry points a user calls, and times the kernels:
    one-tick entry must launch exactly once per tick; the trajectory is
    replayed through the plain engine and must agree; the net at float32
    agrees with the CPU on a few boards;
-4. the engine path (the random-policy throughput run): the T-tick entry
+4. the training iteration, the main path: StandaloneTrainer with the
+   r5_learning settings (config.load), 1024 games x horizon 64, minibatch
+   64, 4 epochs (4,096 Adam steps), the full-width bf16 net from
+   flax-matched initial weights.  One warm-up iteration, then one timed:
+   the one-tick entry must launch exactly 64 times in it, every stat be
+   finite, the parameters move and Adam's lr equal the schedule's value.
+   Prints train env-steps/s, the rollout / GAE / update split, ms per Adam
+   step, the iteration's FLOPs from the conv shapes (torch's flop counter
+   on one minibatch: forward x N x (horizon + 1) + (forward + backward) x
+   samples x epochs) and train_mfu, their share of the 989 TFLOP/s bf16
+   peak, kernels per minibatch step from a profile of 32 steps; and holds
+   the update on 256 samples (4 steps) at float32 without TF32 on the card
+   against the CPU (first-step gradients and loss terms);
+5. the engine path (the random-policy throughput run): the T-tick entry
    at 4096 boards with in-kernel random actions;
-5. times: kernel, plain version and bound of each entry at the shape its
+6. times: kernel, plain version and bound of each entry at the shape its
    path gives it (the timed kernel and plain outputs are held equal too),
    the rollout's env-steps/s.  The bound is the larger of the bytes side
    (state read and written once over the memory rate) and the operations
@@ -42,7 +55,9 @@ and the script exits non-zero without that line; so does a machine with
 no CUDA device.  A copy of the results goes to chiprun_out/chip_smoke.json.
 """
 import argparse
+import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -65,6 +80,16 @@ N_RAGGED, T_EXTRA = 1001, 48       # ragged game count (its last block of 4
                                    # games has 1); ticks of the extra
                                    # comparisons
 DEV = "cuda"
+TRAIN_EPOCHS = 4                   # the recipe's; a cut is printed
+TRAIN_SEED = 7
+H100_BF16_FLOPS = 989e12           # dense bf16 peak, H100 SXM data sheet
+# the update on the card against the CPU, float32 without TF32, from seeded
+# weights: first-step gradients relative to each leaf's largest |g| (a
+# full-width net's float32 sums in another order: measured 2.8e-5; with
+# TF32 on 8.5e-3, which this tolerance rejects), and the last of the 4
+# steps' loss terms relative (measured 1.8e-4: 3 Adam steps amplify ulps)
+UPDATE_GRAD_TOL = 1e-3
+UPDATE_STAT_TOL = 2e-3
 
 
 def log(*a):
@@ -317,6 +342,198 @@ def net_card_vs_cpu(env, state):
     return err
 
 
+def phase_train(results, card):
+    """The main path's training iteration (StandaloneTrainer, r5_learning):
+    rollout with the one-tick entry, GAE, the PPO update with Adam."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from drl_tetris_tpu_torch import config
+    from drl_tetris_tpu_torch.algos.rollout import policy_inputs
+    from drl_tetris_tpu_torch.config.parameter import param_eval
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.runtime.standalone import (StandaloneConfig,
+                                                         StandaloneTrainer)
+    from drl_tetris_tpu_torch.utils.metrics import (busy_share,
+                                                    device_kernels,
+                                                    profile_update_steps)
+    mc = config.load("r5_learning")
+    ppo = dataclasses.replace(mc.ppo, n_train_epochs=TRAIN_EPOCHS)
+    if TRAIN_EPOCHS != mc.ppo.n_train_epochs:
+        log(f"[train] CUT: {TRAIN_EPOCHS} epochs instead of "
+            f"{mc.ppo.n_train_epochs}")
+    cfg = StandaloneConfig(env=mc.env, model=mc.model, ppo=ppo,
+                           n_envs=N_SLICE, horizon=HORIZON, seed=TRAIN_SEED,
+                           lr_schedule=mc.value_lr)
+    tr = StandaloneTrainer(cfg, device=DEV)
+    t0 = time.perf_counter()
+    tr.train_iteration()                      # warm-up: cuDNN, allocator
+    sync()
+    warm_s = time.perf_counter() - t0
+    before = [p.detach().clone() for p in tr.net.parameters()]
+    steps_before = tr.total_steps
+    for k in cuda_tick.LAUNCHES:
+        cuda_tick.LAUNCHES[k] = 0
+    sync()
+    t0 = time.perf_counter()
+    stats = tr.train_iteration()
+    sync()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_tick.LAUNCHES)
+    phase = dict(tr.phase_ms)
+
+    if launches["step"] != HORIZON or launches["rollout"] != 0:
+        raise AssertionError(f"launches {launches}: the one-tick entry must "
+                             f"carry each of the {HORIZON} env steps")
+    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"stats not finite: {bad}")
+    moved = max((p.detach() - b).abs().max().item()
+                for p, b in zip(tr.net.parameters(), before))
+    if not moved > 0.0:
+        raise AssertionError("the update did not change the parameters")
+    lr = tr.state.optimizer.param_groups[0]["lr"]
+    want = param_eval(cfg.lr_schedule, steps_before)
+    if lr != want:
+        raise AssertionError(f"Adam lr {lr} != schedule {want}")
+
+    n_samples = N_SLICE * HORIZON
+    n_steps = ppo.n_train_epochs * (n_samples // ppo.minibatch_size)
+    # analytic FLOPs from the conv shapes (torch's flop counter on one
+    # minibatch), per sample: the forward, and forward + backward
+    obs = tr.env.observe(tr.env_state)
+    vec, vis = policy_inputs(obs)
+    mb = ppo.minibatch_size
+    vec, vis = [v[:mb] for v in vec], [v[:mb] for v in vis]
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        tr.net(vec, vis)
+    fwd = fc.get_total_flops() / mb
+    with FlopCounterMode(display=False) as fc:
+        pi, v = tr.net(vec, vis)
+        (pi.sum() + v.sum()).backward()
+    fwd_bwd = fc.get_total_flops() / mb
+    tr.net.zero_grad(set_to_none=True)
+    iter_flops = (fwd * N_SLICE * (HORIZON + 1)
+                  + fwd_bwd * n_samples * ppo.n_train_epochs)
+    mfu = iter_flops / secs / H100_BF16_FLOPS
+    sps = n_samples / secs
+
+    prof, prof_s, prof_steps = profile_update_steps(tr, 8)
+    kernels = device_kernels(prof)
+    kps = len(kernels) / prof_steps
+    busy = busy_share(kernels, prof_s * 1e6)
+    cuda_tick.raise_if_overflowed(tr.env_state.current_player.device)
+    log(f"[train] {card}: StandaloneTrainer r5_learning, {N_SLICE} games x "
+        f"{HORIZON} ticks, minibatch {mb}, {ppo.n_train_epochs} epochs "
+        f"({n_steps} Adam steps), bf16 net; warm-up iteration {warm_s:.1f} "
+        f"s, timed iteration {secs:.3f} s = {sps:.1f} train env-steps/s")
+    log(f"[train] {card}: rollout {phase['rollout']:.1f} ms, GAE "
+        f"{phase['gae']:.2f} ms, update {phase['update']:.1f} ms = "
+        f"{phase['update'] / n_steps:.3f} ms per Adam step; one-tick "
+        f"launches {launches['step']}")
+    log(f"[train] {card}: {fwd / 1e9:.4f} GFLOP forward and "
+        f"{fwd_bwd / 1e9:.4f} GFLOP forward+backward per sample; "
+        f"iteration {iter_flops / 1e12:.3f} TFLOP "
+        f"({iter_flops / n_samples / 1e9:.3f} GFLOP per env-step); "
+        f"train_mfu {mfu:.5f} of {H100_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16")
+    log(f"[train] {card}: profile of {prof_steps} minibatch steps: "
+        f"{kps:.1f} kernels per step, {prof_s / prof_steps * 1e3:.3f} ms "
+        f"per step under the profiler, device busy {busy:.4f}; lr {lr:.6g}, "
+        f"loss {stats['losses/total_loss']:.5f}, entropy "
+        f"{stats['entropy/entropy']:.4f}, max |dparam| {moved:.3e}")
+    results.update(
+        train_s=secs, train_sps=sps, train_warm_s=warm_s,
+        train_phase_ms=phase, train_ms_per_step=phase["update"] / n_steps,
+        train_steps=n_steps, train_epochs=ppo.n_train_epochs,
+        train_launches=launches["step"], train_flops=iter_flops,
+        train_fwd_flops=fwd, train_fwd_bwd_flops=fwd_bwd, train_mfu=mfu,
+        train_kernels_per_step=kps, train_profile_busy=busy,
+        train_stats=stats, train_lr=lr)
+    update_card_vs_cpu(results, card, tr.env, tr.env_state, ppo)
+
+
+def update_card_vs_cpu(results, card, env, env_state, ppo_cfg):
+    """The PPO update on 256 samples (4 minibatch steps) at float32 with
+    TF32 off, on the card and on the CPU, from weights drawn from a numpy
+    seed and a batch of one rollout tick of ``env`` with them; the card's
+    first-step gradients with TF32 on are printed for scale."""
+    from drl_tetris_tpu_torch.algos import ppo as P
+    from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn
+    from drl_tetris_tpu_torch.engine import rng
+    from drl_tetris_tpu_torch.models.convert import seeded_state_dict
+    from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
+
+    cfg = dataclasses.replace(ppo_cfg, n_train_epochs=1)
+    n = 4 * cfg.minibatch_size
+    engine = env.cfg.engine
+    model = ModelConfig(compute_dtype="float32")
+
+    def make_net(dev):
+        net = PPONet(model, board=(engine.height, engine.width), device=dev)
+        net.load_state_dict(seeded_state_dict(net, 3))
+        return net
+
+    gen = torch.Generator(device=env.device).manual_seed(13)
+    _, seg, last = make_rollout_fn(env, make_net(env.device), 1)(env_state,
+                                                                 gen)
+    batch, _ = P.segment_to_batch(cfg, seg, last)
+    batch = P.Batch(*[a[:n].cpu() for a in batch])
+
+    def run(dev, update=True):
+        net = make_net(dev)
+        key = rng.prng_key(11, dev)
+        b = P.Batch(*[a.to(dev) for a in batch])
+        grads, _ = P.first_step_gradients(engine, cfg, net, b, key)
+        grads = {k: g.cpu() for k, g in grads.items()}
+        if not update:
+            return grads, None
+        init_fn, update_fn = P.make_ppo_update(engine, net, cfg)
+        _, stats = update_fn(init_fn(), b, key)
+        return grads, {k: v.item() for k, v in stats.items()}
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        g_tf32, _ = run(DEV, update=False)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        g_card, s_card = run(DEV)
+        g_cpu, s_cpu = run("cpu")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+    def grad_errs(g):
+        return {k: (g[k] - ref).abs().max().item()
+                / max(ref.abs().max().item(), 1e-30)
+                for k, ref in g_cpu.items()}
+    errs, errs_tf32 = grad_errs(g_card), grad_errs(g_tf32)
+    worst = sorted(errs, key=errs.get, reverse=True)[:3]
+    grad_err = errs[worst[0]]
+    stat_errs = {k: abs(s_card[k] - v) / max(abs(v), 1e-6)
+                 for k, v in s_cpu.items() if "saturation" not in k}
+    worst_stat = max(stat_errs, key=stat_errs.get)
+    stat_err = stat_errs[worst_stat]
+    sat_err = max(abs(s_card[k] - v) for k, v in s_cpu.items()
+                  if "saturation" in k)
+    log(f"[train] {card}: update card vs cpu, float32, TF32 off, {n} "
+        f"samples, {n // cfg.minibatch_size} steps: first-step gradients "
+        f"{grad_err:.3e} of each leaf's max (tolerance {UPDATE_GRAD_TOL}; "
+        f"worst leaves "
+        f"{', '.join(f'{k} {errs[k]:.2e}' for k in worst)}; median "
+        f"{sorted(errs.values())[len(errs) // 2]:.2e}), last-step loss "
+        f"terms {stat_err:.3e} relative ({worst_stat}; tolerance "
+        f"{UPDATE_STAT_TOL}), "
+        f"saturations {sat_err}; with TF32 on the gradients are "
+        f"{max(errs_tf32.values()):.3e} (median "
+        f"{sorted(errs_tf32.values())[len(errs) // 2]:.2e})")
+    if not (grad_err < UPDATE_GRAD_TOL and stat_err < UPDATE_STAT_TOL
+            and sat_err <= 1.0 / cfg.minibatch_size):
+        raise AssertionError("the update on the card disagrees with the CPU")
+    results.update(update_grad_err=grad_err, update_stat_err=stat_err,
+                   update_grad_err_tf32=max(errs_tf32.values()))
+
+
 def phase_engine(results, card):
     """The random-policy engine run: one T-tick launch over 4096 boards."""
     from drl_tetris_tpu_torch.engine import cuda_tick
@@ -494,11 +711,13 @@ def phase_times(results, card, baseline=None):
         f"{rb_ops:.6f} ms; bound by {rby}")
     kernels = [
         dict(name="engine_tick_step", route="cuda", source=SOURCE,
-             replaces=REPLACES, launches=results["step_launches"],
+             replaces=REPLACES, launches=results["train_launches"],
+             selfplay_launches=results["step_launches"],
              max_abs_err=max([results["errs"][k] for k in results["errs"]
                               if k.startswith("step")] + [step_err]),
              ms=step_ms, plain_ms=step_plain_ms, bound_ms=sb, bound_by=sby,
-             library_ms=None, path="self-play rollout (make_rollout_fn)",
+             library_ms=None,
+             path="training iteration (StandaloneTrainer.train_iteration)",
              shape=f"{N_SLICE} games x 1 tick", wrapper_ms=wrap_ms,
              bytes_ms=sb_bytes, ops_ms=sb_ops),
         dict(name="engine_tick_rollout", route="cuda", source=SOURCE,
@@ -554,7 +773,8 @@ def main():
     results = {"card": card}
     t0 = time.perf_counter()
     baseline = phase_build(results, card, opts.baseline)
-    for phase in (phase_kernel_vs_plain, phase_selfplay, phase_engine):
+    for phase in (phase_kernel_vs_plain, phase_selfplay, phase_train,
+                  phase_engine):
         t = time.perf_counter()
         phase(results, card)
         log(f"[{phase.__name__}] done in {time.perf_counter() - t:.1f} s")
@@ -565,8 +785,10 @@ def main():
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump(results, f, indent=1)
-    log(f"self-play {results['selfplay_sps']:.0f} env-steps/s, engine "
-        f"kernel {results['engine_sps']:.0f} env-steps/s; {card}; total "
+    log(f"train {results['train_sps']:.1f} env-steps/s (train_mfu "
+        f"{results['train_mfu']:.5f}), self-play "
+        f"{results['selfplay_sps']:.0f} env-steps/s, engine kernel "
+        f"{results['engine_sps']:.0f} env-steps/s; {card}; total "
         f"{results['total_s']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

@@ -1,8 +1,9 @@
 """drl_tetris_tpu_torch: the PyTorch / CUDA port of drl_tetris_tpu.
 
 The JAX package ``drl_tetris_tpu`` stays the reference; this package mirrors
-its layout (``engine/``, ``env/``, ``models/``, ``algos/``) in PyTorch idiom
-and imports nothing of it, nor JAX.
+its layout (``engine/``, ``env/``, ``models/``, ``algos/``, ``config/``,
+``runtime/``, ``utils/``) in PyTorch idiom and imports nothing of it, nor
+JAX.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU.  With no card and no explicit CPU request they raise; they never

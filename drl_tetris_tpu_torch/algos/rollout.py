@@ -2,7 +2,7 @@
 sample -> env step, over a fixed horizon with auto-reset.
 
 Counterpart of ``drl_tetris_tpu/algos/rollout.py`` (``make_rollout_fn``;
-the pool rollout waits for the trainer slice).  The JAX package scans the
+the pool rollout waits for a later slice).  The JAX package scans the
 horizon inside one jitted program; here it is a Python loop, and each
 tick's env step is one launch of the engine kernel's one-tick entry on the
 card (engine/cuda_tick.py), between two policy forwards.

@@ -2,7 +2,8 @@
 bit-exact with partitionable ``jax.random`` (``jax_threefry_partitionable``).
 
 Counterpart of ``drl_tetris_tpu/engine/rng.py`` plus the ``jax.random``
-calls of ``env.reset`` (``PRNGKey``, ``split``, ``randint``).  Keys are
+calls of ``env.reset`` (``PRNGKey``, ``split``, ``randint``) and of the
+PPO update (``permutation``).  Keys are
 ``(..., 2)`` tensors of uint32 words; every function here takes and returns
 int64 tensors holding values in [0, 2**32) (``u32``), because PyTorch has no
 full uint32 arithmetic.  The CUDA kernel carries the same functions as
@@ -10,6 +11,7 @@ full uint32 arithmetic.  The CUDA kernel carries the same functions as
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -101,6 +103,18 @@ def key_uniform(keys: torch.Tensor) -> torch.Tensor:
     counter (0, 0)."""
     b1, b2 = threefry2x32(keys[..., 0], keys[..., 1], 0, 0)
     return bits_to_uniform(b1 ^ b2)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """== jax.random.permutation(key, n) for one key (2,): rounds of a
+    stable sort of arange(n) by fresh 32-bit keys, ceil(3 ln n / ln(2**32
+    - 1)) rounds (jax's _shuffle); int64 indices on the key's device."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        x = x[torch.sort(random_bits(sub, (n,)), stable=True).indices]
+    return x
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int

@@ -6,7 +6,7 @@ state_unpack.py).  Per player the vector observation is
 ``[x, y, incoming_lines, combo_time, combo_count, nextpiece(7)]``; the field
 is the visual input; the perspective stack for player p is [p, 1-p].
 
-The mirrored variant (augment_data) waits for the training slice.
+Mirror augmentation of training batches is ``algos/ppo.augment_batch``.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from drl_tetris_tpu_torch.engine.core import EngineConfig, EngineState
 from drl_tetris_tpu_torch.engine.rng import u32
 
 # L<->J, S<->Z under horizontal reflection (trajectory.py:89); the port's
-# own copy, used by the mirrored observation of the training slice.
+# own copy, used by the mirror augmentation (algos/ppo.augment_batch).
 PIECE_SWAP_NP = np.asarray([1, 0, 3, 2, 4, 5, 6], dtype=np.int32)
 
 

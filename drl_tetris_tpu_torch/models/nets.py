@@ -19,6 +19,7 @@ and the DQN head wait for a later slice.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -119,6 +120,20 @@ def conv_shape_vector(vec: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return vec[:, None, None, :].expand(vec.shape[0], h, w, vec.shape[1])
 
 
+def glorot_uniform(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax's glorot_uniform for an OIHW kernel (fans as for flax's HWIO
+    layout): uniform on [-l, l), l = sqrt(6 / (fan_in + fan_out)), drawn on
+    the generator's device."""
+    field = math.prod(shape[2:])
+    limit = math.sqrt(6.0 / (shape[1] * field + shape[0] * field))
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (2.0 * u - 1.0) * limit
+
+
+def _fill(param: torch.Tensor, values: torch.Tensor):
+    param.copy_(values.to(param.device))
+
+
 def action_softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the (rotation, translation) plane per piece; x is
     (B, R, T, P)."""
@@ -147,8 +162,10 @@ class ResidualBlock(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if dropout:
-            raise NotImplementedError("dropout waits for the training slice")
+            raise NotImplementedError("dropout is not ported: the main "
+                                      "path trains without it")
         self.peepholes, self.pools = peepholes, pools
+        self.output_layer = output_layer
         self.pool_size = tuple(pool_size)
         self.dtype = dtype
         self.convs = nn.ModuleList()
@@ -174,6 +191,25 @@ class ResidualBlock(nn.Module):
             self.modes.append(mode)
             self.acts.append(act)
         self.out_channels = c
+
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator):
+        """flax's initialisers (drl_tetris_tpu/models/nets.py:149-166):
+        glorot_uniform kernels, normal(0.01) on the last two of an output
+        block, zero biases, LayerNorm weight 1 and bias 0."""
+        n = len(self.convs)
+        for i, conv in enumerate(self.convs):
+            if self.output_layer and i >= n - 2:
+                _fill(conv.weight, 0.01 * torch.randn(
+                    conv.weight.shape, generator=generator,
+                    device=generator.device))
+            else:
+                _fill(conv.weight, glorot_uniform(conv.weight.shape,
+                                                  generator))
+            conv.bias.zero_()
+        if self.norm is not None:
+            self.norm.weight.fill_(1.0)
+            self.norm.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -208,6 +244,15 @@ class KeyboardConv(nn.Module):
         super().__init__()
         self.n_rot, self.n_pieces = n_rot, n_pieces
         self.conv = nn.Conv2d(in_channels, n_rot * n_pieces, (height, 3))
+
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator):
+        """A zero kernel and a normal(1e-5) bias, as flax's KeyboardConv:
+        the policy starts uniform."""
+        self.conv.weight.zero_()
+        _fill(self.conv.bias, 1e-5 * torch.randn(
+            self.conv.bias.shape, generator=generator,
+            device=generator.device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)                            # (B, R*P, 1, W)
@@ -254,6 +299,10 @@ class SventonNet(nn.Module):
                                   if cfg.separate_piece_values else 1),
                 output_activation=None, output_layer=True,
                 normalization="layer", dropout=cfg.dropout, dtype=dt)
+        # a buffer, not a parameter (the L2 term sees exactly the flax
+        # leaves), and not in the state_dict; it moves with the module, so
+        # the forward copies nothing from the host
+        self.register_buffer("piece_mask", cfg.piece_mask, persistent=False)
 
     def forward(self, vec, vis):
         c = self.cfg
@@ -278,7 +327,7 @@ class SventonNet(nn.Module):
         v = v.float().mean(dim=(2, 3))                   # (B, P+1 | 1)
         if v.shape[-1] > 1:
             base, offs = v[:, :1], v[:, 1:]
-            mask = c.piece_mask.to(v.device)[None, :]
+            mask = self.piece_mask[None, :]
             mean = (offs.mean(-1, keepdim=True) * mask).sum(
                 -1, keepdim=True) / mask.sum()
             v = torch.tanh(base + (offs - mean))
@@ -299,6 +348,15 @@ class PPONet(nn.Module):
         self.cfg = cfg
         self.trunk = SventonNet(cfg, board, full_network)
         self.to(resolve_device(device))
+
+    def init_flax_(self, generator: torch.Generator) -> "PPONet":
+        """Fresh weights with flax's initialisers, drawn from
+        ``generator``: the distributions of the JAX package's
+        ``net.init``, not its values."""
+        for m in self.modules():
+            if isinstance(m, (ResidualBlock, KeyboardConv)):
+                m.init_flax_(generator)
+        return self
 
     def forward(self, vec, vis):
         raw_v, raw_a = self.trunk(vec, vis)

@@ -156,3 +156,37 @@ def test_demo_weights_full_width(demo_params, dtype):
         live = jpi > LOG_PI_FLOOR
         gap = np.abs(np.log(jpi[live]) - np.log(tpi[live])).max()
         assert live.sum() > 20 and gap < tol["log_pi"], (live.sum(), gap)
+
+
+def test_flax_initialisers():
+    """PPONet.init_flax_ draws from flax's initialisers: a zero keyboard
+    kernel, zero biases (the keyboard bias normal(1e-5)), LayerNorm weight
+    1, and per layer of at least 500 elements a std within 10% of the
+    flax init's (glorot_uniform; normal(0.01) on the value tower's last
+    two convs), at full width."""
+    vecs, viss = make_inputs(1, 0)
+    jparams = jnets.PPONet(jnets.ModelConfig()).init(
+        jax.random.PRNGKey(0), [jnp.asarray(v) for v in vecs],
+        [jnp.asarray(v) for v in viss])["params"]
+    ref = params_from_flax(jax.tree.map(np.asarray, jparams))
+    net = nets.PPONet(nets.ModelConfig(), device="cpu")
+    got = net.init_flax_(torch.Generator().manual_seed(0)).state_dict()
+    assert set(got) == set(ref)
+    assert (got["trunk.kbd.conv.weight"] == 0).all()
+    assert (ref["trunk.kbd.conv.weight"] == 0).all()
+    kbd_bias = got["trunk.kbd.conv.bias"].std().item()
+    assert 0.5e-5 < kbd_bias < 2e-5, kbd_bias
+    n_checked = 0
+    for k, v in got.items():
+        if k.endswith(".bias") and "kbd" not in k:
+            assert (v == 0).all() and (ref[k] == 0).all(), k
+        elif k.endswith("norm.weight"):
+            assert (v == 1).all() and (ref[k] == 1).all(), k
+        elif v.numel() >= 500 and "kbd" not in k:
+            a, b = v.std().item(), ref[k].std().item()
+            assert abs(a / b - 1) < 0.1, (k, a, b)
+            n_checked += 1
+    assert n_checked >= 30
+    # the value tower's output convs are the narrow normal(0.01) ones
+    last = f"trunk.value_tower.convs.{nets.ModelConfig().val_layers - 1}"
+    assert abs(got[last + ".weight"].std().item() / 0.01 - 1) < 0.1

@@ -77,6 +77,22 @@ def test_bits_uniform_randint(seed):
             assert got.dtype == np.int32 and (got == ref).all(), (lo, hi, n)
 
 
+@pytest.mark.parametrize("n", (1, 128, 1000, 65536))
+def test_permutation(n):
+    """jax.random.permutation: 0 rounds at n = 1, 1 at 128 and 1000, 2 at
+    65,536 (the training batch); bit-exact for several keys."""
+    for seed in (0, 3, 2**31 + 5):
+        key = jax.random.PRNGKey(seed)
+        ref = np.asarray(jax.random.permutation(key, n))
+        got = rng.permutation(rng.prng_key(seed), n).numpy()
+        assert got.shape == (n,) and (got == ref).all(), (seed, n)
+    # a split key, as the PPO update's per-epoch keys
+    sub = jax.random.split(jax.random.PRNGKey(9), 4)[3]
+    ref = np.asarray(jax.random.permutation(sub, n))
+    assert (rng.permutation(_t(jax.random.key_data(sub)), n).numpy()
+            == ref).all()
+
+
 def test_key_uniform_is_the_engine_draw():
     """key_uniform(fold_in(k, c)) == uniform(fold_in(k, c)) per game: the
     engine's bag and hole draw (engine/step.py _uniform)."""
