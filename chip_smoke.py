@@ -37,9 +37,30 @@ points a user calls, and times them:
    peak, kernels per minibatch step from a profile of 32 steps; and holds
    the update on 256 samples (4 steps) at float32 without TF32 on the card
    against the CPU (first-step gradients and loss terms);
-5. the engine path (the random-policy throughput run): the T-tick entry
+5. checkpoints, the command line and evaluation (phase_cli):
+   - the trained trainer of step 4 (3,602,996 parameters with Adam's
+     moments) saved with runtime/checkpoint.save and restored into a fresh
+     StandaloneTrainer: the state checksum equal, and validate_recovery on
+     the policy's outputs for 64 boards; save and restore ms, bytes;
+   - ``python -m drl_tetris_tpu_torch train`` as a subprocess at the
+     default stack + r5_learning and the full-width net, 128 games x
+     horizon 32, 2 iterations, a checkpoint each, a league round (16 games
+     per pair) at iteration 2 that must append to elo_history.jsonl; then
+     ``train --resume`` for one more iteration, which must restore step
+     8,192 and reach 12,288; neither process may rebuild the kernel;
+   - ``eval`` of that run against random, 64 games: the score, draw and
+     Elo tables must parse, each seat's games be 64, the TOTAL column
+     equal the wins, and wins plus draws equal the games;
+   - an in-process round robin at full width (the trained net, argmax,
+     against a fresh net sampling pi; 64 games, 32 per match), timed
+     after one warm match at the same shapes: the one-tick entry must
+     launch exactly once per match tick, and every match tick's state,
+     reward and done, as the kernel computed them in the run, must equal
+     the plain version's from the same state and actions; match
+     env-steps/s;
+6. the engine path (the random-policy throughput run): the T-tick entry
    at 4096 boards with in-kernel random actions;
-6. times: kernel, plain version and bound of each entry at the shape its
+7. times: kernel, plain version and bound of each entry at the shape its
    path gives it (the timed kernel and plain outputs are held equal too),
    the rollout's env-steps/s.  The bound is the larger of the bytes side
    (state read and written once over the memory rate) and the operations
@@ -90,6 +111,11 @@ H100_BF16_FLOPS = 989e12           # dense bf16 peak, H100 SXM data sheet
 # steps' loss terms relative (measured 1.8e-4: 3 Adam steps amplify ulps)
 UPDATE_GRAD_TOL = 1e-3
 UPDATE_STAT_TOL = 2e-3
+CLI_ENVS, CLI_HORIZON = 128, 32     # the CLI's train geometry here
+CLI_LEAGUE_GAMES = 16               # league games per pair
+CLI_EVAL_GAMES = 64                 # CLI eval games per pair
+EVAL_GAMES = 64                     # in-process round robin, per pair
+CLI_TIMEOUT = 600                   # seconds for one CLI process
 
 
 def log(*a):
@@ -366,7 +392,7 @@ def phase_train(results, card):
                            lr_schedule=mc.value_lr)
     tr = StandaloneTrainer(cfg, device=DEV)
     t0 = time.perf_counter()
-    tr.train_iteration()                      # warm-up: cuDNN, allocator
+    tr.train_iteration()                      # cuDNN, allocator
     sync()
     warm_s = time.perf_counter() - t0
     before = [p.detach().clone() for p in tr.net.parameters()]
@@ -449,6 +475,7 @@ def phase_train(results, card):
         train_kernels_per_step=kps, train_profile_busy=busy,
         train_stats=stats, train_lr=lr)
     update_card_vs_cpu(results, card, tr.env, tr.env_state, ppo)
+    results["_trainer"] = tr                  # phase_cli checkpoints it
 
 
 def update_card_vs_cpu(results, card, env, env_state, ppo_cfg):
@@ -532,6 +559,231 @@ def update_card_vs_cpu(results, card, env, env_state, ppo_cfg):
         raise AssertionError("the update on the card disagrees with the CPU")
     results.update(update_grad_err=grad_err, update_stat_err=stat_err,
                    update_grad_err_tf32=max(errs_tf32.values()))
+
+
+def run_cli(args, label):
+    """``python -m drl_tetris_tpu_torch ARGS`` on the card from the
+    checkout; returns (stdout, seconds).  Fails on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "drl_tetris_tpu_torch",
+                          *args, "--device", DEV], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=CLI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"CLI {label} exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, secs
+
+
+def iteration_sps(stdout):
+    """{total steps: env-steps/s} from the train verb's iteration lines."""
+    return {int(a.replace(",", "")): float(b.replace(",", ""))
+            for a, b in re.findall(r"\[\s*([\d,]+) steps\] ([\d,.]+) sps",
+                                   stdout)}
+
+
+def score_table(text, names):
+    """({(a, b): (wins, games)}, {a: TOTAL}) from Scoreboard.score_table's
+    text."""
+    rows = [r.split() for r in text.strip().splitlines()]
+    if rows[0] != names + ["TOTAL"]:
+        raise AssertionError(f"score table header {rows[0]}")
+    cells, totals = {}, {}
+    for row in rows[1:]:
+        for b, cell in zip(names, row[1:1 + len(names)]):
+            if b != row[0]:
+                w, g = cell.split("/")
+                cells[(row[0], b)] = (int(w), int(g))
+        totals[row[0]] = int(row[1 + len(names)])
+    return cells, totals
+
+
+def phase_cli(results, card):
+    """Checkpoints, the command line and evaluation on the card: the
+    trained full-width trainer's checkpoint round trip; ``train`` (2
+    iterations at CLI_ENVS x CLI_HORIZON with a league round), ``train
+    --resume`` and ``eval`` as subprocesses; an in-process round robin at
+    full width that counts the one-tick launches per match tick."""
+    import tempfile
+
+    from drl_tetris_tpu_torch.config.presets import CLI_PRESETS
+    from drl_tetris_tpu_torch.algos.rollout import policy_inputs
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.engine.checks import tick_err
+    from drl_tetris_tpu_torch.env.env import step_plain
+    from drl_tetris_tpu_torch.models.nets import PPONet
+    from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
+    from drl_tetris_tpu_torch.runtime import evaluate
+    from drl_tetris_tpu_torch.runtime.standalone import StandaloneTrainer
+    from drl_tetris_tpu_torch.utils.elo import fit_elo
+
+    tr = results.pop("_trainer")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli-")
+    d = tmp.name
+
+    # 1. the full-width trainer's checkpoint, restored into a fresh trainer
+    n_params = sum(p.numel() for p in tr.net.parameters())
+    state = tr.state_dict()
+    expected = ckpt.state_checksum(state)
+    sync()
+    t0 = time.perf_counter()
+    ckpt.save(os.path.join(d, "ckpt"), tr.total_steps, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(d, "ckpt", str(tr.total_steps), ckpt.STATE_FILE)
+    n_bytes = os.path.getsize(path)
+    fresh = StandaloneTrainer(tr.cfg, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    ckpt.restore(os.path.join(d, "ckpt"), fresh)
+    sync()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if ckpt.state_checksum(fresh.state_dict()) != expected:
+        raise AssertionError("the restored trainer's state differs")
+    vec, vis = policy_inputs(tr.env.observe(tr.env_state))
+    vec, vis = [v[:64] for v in vec], [v[:64] for v in vis]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def outputs(t):
+            with torch.no_grad():
+                return list(t.net(vec, vis))
+        ckpt.validate_recovery(outputs, fresh, ckpt.state_checksum(
+            outputs(tr)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del fresh
+    log(f"[cli] {card}: checkpoint of the r5_learning trainer "
+        f"({n_params} parameters and Adam's moments): save {save_ms:.1f} "
+        f"ms, restore into a fresh trainer {restore_ms:.1f} ms, "
+        f"{n_bytes} bytes on disk; state checksum equal, policy outputs "
+        f"on 64 boards bit-identical (validate_recovery)")
+
+    # 2. train and train --resume through the command line
+    built = sorted(os.listdir(cuda_tick.BUILD_DIR))
+    per_iter = CLI_ENVS * CLI_HORIZON
+    run_dir = os.path.join(d, "models", "smoke")
+    train = ["train", "--presets", *CLI_PRESETS, "r5_learning",
+             "--data-dir", d, "--run-id", "smoke", "--n-envs",
+             str(CLI_ENVS), "--horizon", str(CLI_HORIZON), "--seed", "7",
+             "--save-every", "1", "--league-every", "2", "--league-games",
+             str(CLI_LEAGUE_GAMES)]
+    out, train_s = run_cli(train + ["--steps", str(2 * per_iter)], "train")
+    sps = iteration_sps(out)
+    if sorted(sps) != [per_iter, 2 * per_iter]:
+        raise AssertionError(f"train printed the iterations {sorted(sps)}")
+    elo_path = os.path.join(run_dir, "elo_history.jsonl")
+    with open(elo_path) as f:
+        elo_lines = [json.loads(x) for x in f]
+    if [x["step"] for x in elo_lines] != [2 * per_iter] or \
+            set(elo_lines[0]["ratings"]) != {"random", f"step_{2 * per_iter}"}:
+        raise AssertionError(f"elo_history.jsonl after train: {elo_lines}")
+    out2, resume_s = run_cli(train + ["--steps", str(3 * per_iter),
+                                      "--resume"], "train --resume")
+    if f"[resume] restored {run_dir} @ step {2 * per_iter:,}" not in out2:
+        raise AssertionError(f"train --resume did not restore:\n{out2}")
+    if sorted(iteration_sps(out2)) != [3 * per_iter] or \
+            ckpt.latest_step(run_dir) != 3 * per_iter:
+        raise AssertionError(f"train --resume steps:\n{out2}")
+    if sorted(os.listdir(cuda_tick.BUILD_DIR)) != built:
+        raise AssertionError("a CLI process rebuilt the kernel")
+    cli_sps = sps[2 * per_iter]
+    log(f"[cli] {card}: train {CLI_ENVS} x {CLI_HORIZON} (2 iterations, "
+        f"league of {CLI_LEAGUE_GAMES} games per pair at iteration 2) in "
+        f"{train_s:.1f} s of process wall time (start, 2 iterations, 3 "
+        f"saves, the league) = {2 * per_iter / train_s:.1f} env-steps/s; "
+        f"the second iteration alone, as the CLI prints it, {cli_sps:.1f} "
+        f"train env-steps/s (this geometry; not comparable with the "
+        f"{N_SLICE} x {HORIZON} figure); league ratings "
+        f"{elo_lines[0]['ratings']}; train --resume @ "
+        f"{2 * per_iter} -> {3 * per_iter} steps in {resume_s:.1f} s")
+
+    # 3. eval of the run against random through the command line
+    out3, eval_s = run_cli(["eval", run_dir, "--games", str(CLI_EVAL_GAMES)],
+                           "eval")
+    table, _, rest = out3.partition("Draws (games undecided at the tick "
+                                    "limit):")
+    draw_text, _, elo_text = rest.partition("Elo (Bradley-Terry MLE):")
+    cells, totals = score_table(table, ["smoke", "random"])
+    ratings = dict(re.findall(r"(\S+)\s+(-?\d+\.\d)", elo_text))
+    draws = re.fullmatch(r"smoke vs random: (\d+)", draw_text.strip())
+    (w_a, g_a), (w_b, g_b) = cells[("smoke", "random")], \
+        cells[("random", "smoke")]
+    if set(ratings) != {"smoke", "random"} or draws is None \
+            or g_a != CLI_EVAL_GAMES or g_b != CLI_EVAL_GAMES \
+            or totals != {"smoke": w_a, "random": w_b} \
+            or w_a + w_b + int(draws[1]) != CLI_EVAL_GAMES:
+        raise AssertionError(f"eval output:\n{out3}")
+    draws = int(draws[1])
+    log(f"[cli] {card}: eval {CLI_EVAL_GAMES} games vs random in "
+        f"{eval_s:.1f} s: wins {w_a}, losses {w_b}, draws {draws}; Elo "
+        f"{ratings}")
+
+    # 4. a round robin in process at full width: one launch per match tick
+    e = tr.cfg.env.engine
+    rnd = PPONet(tr.cfg.model, board=(e.height, e.width), device=DEV)
+    rnd.init_flax_(torch.Generator().manual_seed(0xE10))
+    agents = [evaluate.EvalAgent("trained", tr.net.eval()),
+              evaluate.EvalAgent("random", rnd.eval(), distribution="pi")]
+    # one warm match at the round robin's shapes (cuDNN, allocator)
+    evaluate.play_match(tr.cfg.env, tuple(agents),
+                        n_games=EVAL_GAMES // 2, seed=2)
+    ticks_in = []                             # (inputs, kernel's outputs)
+    env_cls = evaluate.TetrisVectorEnv
+
+    class Recorded(env_cls):
+        def step(self, state, rotations, translations):
+            out = super().step(state, rotations, translations)
+            ticks_in.append(((self.cfg, state, rotations, translations), out))
+            return out
+    evaluate.TetrisVectorEnv = Recorded
+    try:
+        for k in cuda_tick.LAUNCHES:
+            cuda_tick.LAUNCHES[k] = 0
+        sync()
+        t0 = time.perf_counter()
+        board = evaluate.round_robin(tr.cfg.env, agents,
+                                     games_per_pair=EVAL_GAMES, seed=3)
+        sync()
+        rr_s = time.perf_counter() - t0
+        launches = dict(cuda_tick.LAUNCHES)
+    finally:
+        evaluate.TetrisVectorEnv = env_cls
+    ticks = len(ticks_in)
+    if launches["step"] != ticks or launches["rollout"] != 0 or ticks == 0:
+        raise AssertionError(f"launches {launches} for {ticks} match ticks:"
+                             f" the one-tick entry must carry each tick")
+    games = board.games[("trained", "random")]
+    if games != EVAL_GAMES:
+        raise AssertionError(f"{games} games of {EVAL_GAMES} recorded")
+    match_sps = EVAL_GAMES // 2 * ticks / rr_s
+    # what the kernel computed on each match tick against the plain version
+    # from the same state and actions
+    match_err = max(tick_err(out, step_plain(*inputs))
+                    for inputs, out in ticks_in)
+    match_done = sum(int(out[2].sum()) for _, out in ticks_in)
+    results["errs"]["step_eval"] = match_err
+    if match_err != 0.0 or match_done == 0:
+        raise AssertionError(f"match ticks: kernel vs plain {match_err}, "
+                             f"{match_done} dones")
+    log(f"[cli] {card}: round robin in process, full width, trained "
+        f"(argmax) vs random (pi), {EVAL_GAMES} games, after one warm "
+        f"match: {ticks} match ticks in 2 matches of {EVAL_GAMES // 2} "
+        f"games, {rr_s:.2f} s = {match_sps:.0f} match env-steps/s; "
+        f"max |kernel - plain| over the {ticks} match ticks {match_err} "
+        f"({match_done} dones); "
+        f"one-tick launches {launches['step']} (one per match tick); "
+        f"{board.wins[('trained', 'random')]}-"
+        f"{board.wins[('random', 'trained')]}, Elo {fit_elo(board)}")
+    tmp.cleanup()
+    results.update(
+        ckpt_save_ms=save_ms, ckpt_restore_ms=restore_ms,
+        ckpt_bytes=n_bytes, ckpt_params=n_params, cli_train_s=train_s,
+        cli_resume_s=resume_s, cli_train_sps=cli_sps, cli_eval_s=eval_s,
+        cli_eval=dict(wins=w_a, losses=w_b, draws=draws, elo=ratings),
+        eval_launches=launches["step"], eval_ticks=ticks,
+        match_s=rr_s, match_sps=match_sps)
 
 
 def phase_engine(results, card):
@@ -713,6 +965,8 @@ def phase_times(results, card, baseline=None):
         dict(name="engine_tick_step", route="cuda", source=SOURCE,
              replaces=REPLACES, launches=results["train_launches"],
              selfplay_launches=results["step_launches"],
+             eval_launches=results["eval_launches"],
+             eval_ticks=results["eval_ticks"],
              max_abs_err=max([results["errs"][k] for k in results["errs"]
                               if k.startswith("step")] + [step_err]),
              ms=step_ms, plain_ms=step_plain_ms, bound_ms=sb, bound_by=sby,
@@ -774,7 +1028,7 @@ def main():
     t0 = time.perf_counter()
     baseline = phase_build(results, card, opts.baseline)
     for phase in (phase_kernel_vs_plain, phase_selfplay, phase_train,
-                  phase_engine):
+                  phase_cli, phase_engine):
         t = time.perf_counter()
         phase(results, card)
         log(f"[{phase.__name__}] done in {time.perf_counter() - t:.1f} s")
@@ -786,7 +1040,11 @@ def main():
               "w") as f:
         json.dump(results, f, indent=1)
     log(f"train {results['train_sps']:.1f} env-steps/s (train_mfu "
-        f"{results['train_mfu']:.5f}), self-play "
+        f"{results['train_mfu']:.5f}), CLI train {results['cli_train_sps']:.1f}"
+        f" env-steps/s at {CLI_ENVS} x {CLI_HORIZON}, match "
+        f"{results['match_sps']:.0f} env-steps/s, checkpoint save "
+        f"{results['ckpt_save_ms']:.1f} ms / restore "
+        f"{results['ckpt_restore_ms']:.1f} ms, self-play "
         f"{results['selfplay_sps']:.0f} env-steps/s, engine kernel "
         f"{results['engine_sps']:.0f} env-steps/s; {card}; total "
         f"{results['total_s']:.1f} s")

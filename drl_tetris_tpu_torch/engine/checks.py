@@ -33,6 +33,13 @@ def max_abs_err(a: EnvState, b: EnvState) -> float:
     return worst
 
 
+def tick_err(a: tuple, b: tuple) -> float:
+    """Largest |a - b| of two ticks' (state', reward, done)."""
+    (sa, ra, da), (sb, rb, db) = a, b
+    return max(max_abs_err(sa, sb), (ra - rb).abs().max().item(),
+               float((da != db).sum().item()))
+
+
 def crowded(cfg: EnvConfig, state: EnvState, seed: int) -> EnvState:
     """``state`` with crowded garbage FIFOs (up to garbage_cap pending
     entries of 1-3 lines, rising delays), fractional incoming lines and up
@@ -87,11 +94,10 @@ def compare_entries(cfg: EnvConfig, start: EnvState, ar, at) -> tuple:
     ks, ps = start, start
     step_err, n_done = 0.0, 0
     for tick in range(n_ticks):
-        ks, kr, kd = cuda_tick.step(cfg, ks, ar[tick], at[tick])
-        ps, pr, pd = step_plain(cfg, ps, ar[tick], at[tick])
-        step_err = max(step_err, max_abs_err(ks, ps),
-                       (kr - pr).abs().max().item(),
-                       float((kd != pd).sum().item()))
+        k = cuda_tick.step(cfg, ks, ar[tick], at[tick])
+        p = step_plain(cfg, ps, ar[tick], at[tick])
+        step_err = max(step_err, tick_err(k, p))
+        (ks, _, kd), ps = k, p[0]
         n_done += int(kd.sum())
     step_err = max(step_err, max_abs_err(ks, ref))
     played = int((ker.rounds_played - start.rounds_played).sum())

@@ -1,10 +1,14 @@
-"""Flax parameter trees -> PyTorch state dicts for models/nets.py.
+"""Flax parameter trees and train states <-> PyTorch state dicts.
 
 ``params_from_flax`` takes the JAX package's PPONet params as a nested dict
 of numpy arrays (what ``drl_tetris_tpu.runtime.checkpoint.restore_raw``
 returns under 'params'; no JAX is needed to convert) and returns a
-``state_dict`` for ``PPONet``.  ``seeded_state_dict`` draws a PPONet's
-weights from a numpy seed instead, for runs without a checkpoint.
+``state_dict`` for ``PPONet``; ``params_to_flax`` is its inverse.
+``ppo_state_from_flax`` and ``ppo_state_to_flax`` carry a whole JAX
+``PPOState`` (params, optax Adam state, compressors, update count) to and
+from the port's learner state (``StandaloneTrainer.ppo_state_dict``), as
+numpy trees.  ``seeded_state_dict`` draws a PPONet's weights from a numpy
+seed instead, for runs without a checkpoint.
 
 ``params_from_flax`` maps:
 
@@ -19,7 +23,7 @@ weights from a numpy seed instead, for runs without a checkpoint.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -79,6 +83,144 @@ def params_from_flax(params) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unmapped flax param {'/'.join(path)}")
     return sd
+
+
+_FLAX_BLOCKS = {v: f"ResidualBlock_{k}" for k, v in _BLOCKS.items()}
+
+
+def _flax_path(name: str):
+    """PPONet state_dict name -> the flax param path under 'params'."""
+    parts = name.split(".")
+    if parts[0] != "trunk":
+        raise KeyError(f"not a PPONet parameter: {name}")
+    out, i = ["SventonNet_0"], 1
+    while i < len(parts) - 1:
+        two = ".".join(parts[i:i + 2])
+        if two in _FLAX_BLOCKS:
+            out.append(_FLAX_BLOCKS[two])
+            i += 2
+            continue
+        if parts[i] in _FLAX_BLOCKS:
+            out.append(_FLAX_BLOCKS[parts[i]])
+        elif parts[i] == "kbd":
+            out.append("KeyboardConv_0")
+        elif parts[i] == "conv":
+            out.append("Conv_0")
+        elif parts[i] == "convs":
+            out.append(f"Conv_{parts[i + 1]}")
+            i += 1
+        elif parts[i] == "norm":
+            out.append("LayerNorm_0")
+        else:
+            raise KeyError(f"unmapped PPONet module in {name}")
+        i += 1
+    leaf = parts[-1]
+    if leaf == "bias":
+        return out + ["bias"]
+    if leaf == "weight":
+        return out + ["scale" if out[-1] == "LayerNorm_0" else "kernel"]
+    raise KeyError(f"unmapped PPONet parameter {name}")
+
+
+def params_to_flax(state_dict) -> Dict[str, Any]:
+    """A PPONet state_dict (tensors or arrays) as the flax param tree
+    ``{'params': {'SventonNet_0': ...}}`` of numpy float32 arrays: the
+    inverse of ``params_from_flax``."""
+    tree: Dict[str, Any] = {}
+    for name, value in state_dict.items():
+        a = np.asarray(value.detach().cpu() if torch.is_tensor(value)
+                       else value, dtype=np.float32)
+        path = _flax_path(name)
+        if path[-1] == "kernel":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+def _numpy_tree(sd):
+    return {k: v.detach().cpu().numpy() if torch.is_tensor(v)
+            else np.asarray(v) for k, v in sd.items()}
+
+
+def ppo_state_from_flax(raw) -> Dict[str, Any]:
+    """A JAX ``PPOState`` (drl_tetris_tpu/algos/ppo.py:150) as restored by
+    ``restore_raw`` (nested dicts of numpy arrays) -> the port's learner
+    state as numpy trees: ``params`` (the PPONet state_dict), ``adam``
+    (torch Adam's ``exp_avg``/``exp_avg_sq`` from optax's ``mu``/``nu``,
+    kernels transposed as the weights are; the per-parameter ``step`` from
+    optax's shared ``count``; ``lr`` from ``hyperparams.learning_rate``;
+    ``betas`` and ``eps``), ``adv_comp``/``vloss_comp`` and
+    ``update_count``.  Only the worker-computes-advantages state converts
+    (no reference net)."""
+    if raw.get("ref_params") is not None:
+        raise NotImplementedError(
+            "trainer-computed targets (a reference net in the state) wait "
+            "for ROADMAP 12")
+    opt = raw["opt_state"]
+    hp = opt["hyperparams"]
+    adam = opt["inner_state"][0]
+    count = int(np.asarray(adam["count"]))
+    if int(np.asarray(opt["count"])) != count:
+        raise ValueError("optax's outer and inner Adam counts differ")
+    if float(np.asarray(hp.get("eps_root", 0.0))) != 0.0:
+        raise ValueError("torch Adam has no eps_root")
+    params = _numpy_tree(params_from_flax(raw["params"]))
+    return {
+        "params": params,
+        "adam": {
+            "lr": float(np.asarray(hp["learning_rate"])),
+            "betas": (float(np.asarray(hp["b1"])),
+                      float(np.asarray(hp["b2"]))),
+            "eps": float(np.asarray(hp["eps"])),
+            "step": {k: np.asarray(count, np.float32) for k in params},
+            "exp_avg": _numpy_tree(params_from_flax(adam["mu"])),
+            "exp_avg_sq": _numpy_tree(params_from_flax(adam["nu"])),
+        },
+        "adv_comp": {k: np.asarray(raw["adv_comp"][k], np.float32)
+                     for k in ("x_mean", "x_max")},
+        "vloss_comp": {k: np.asarray(raw["vloss_comp"][k], np.float32)
+                       for k in ("x_mean", "x_max")},
+        "update_count": int(np.asarray(raw["update_count"])),
+    }
+
+
+def ppo_state_to_flax(state) -> Dict[str, Any]:
+    """The port's learner state (``ppo_state_from_flax``'s form, tensors
+    or arrays) -> a JAX ``PPOState`` tree of numpy arrays, in the layout
+    ``restore_raw`` gives for one saved by the JAX package's
+    ``inject_hyperparams(adam)`` trainer.  Every parameter's Adam step
+    must be the same (optax keeps one count)."""
+    adam = state["adam"]
+    steps = {int(np.asarray(v.cpu() if torch.is_tensor(v) else v))
+             for v in adam["step"].values()}
+    if len(steps) != 1:
+        raise ValueError(f"per-parameter Adam steps differ: {sorted(steps)}")
+    count = np.asarray(steps.pop(), np.int32)
+    b1, b2 = adam["betas"]
+    f32 = lambda x: np.asarray(x, np.float32)   # noqa: E731
+    comp = lambda c: {k: f32(c[k].cpu() if torch.is_tensor(c[k])  # noqa: E731
+                             else c[k]) for k in ("x_mean", "x_max")}
+    return {
+        "params": params_to_flax(state["params"]),
+        "opt_state": {
+            "count": count,
+            "hyperparams": {"b1": f32(b1), "b2": f32(b2),
+                            "eps": f32(adam["eps"]), "eps_root": f32(0.0),
+                            "learning_rate": f32(adam["lr"])},
+            "inner_state": [{"count": count.copy(),
+                             "mu": params_to_flax(adam["exp_avg"]),
+                             "nu": params_to_flax(adam["exp_avg_sq"])},
+                            None],
+        },
+        "adv_comp": comp(state["adv_comp"]),
+        "vloss_comp": comp(state["vloss_comp"]),
+        "update_count": np.asarray(int(state["update_count"]), np.int32),
+        "ref_params": None,
+        "ref_countdown": None,
+    }
 
 
 def seeded_state_dict(net, seed: int) -> Dict[str, torch.Tensor]:

@@ -358,6 +358,13 @@ class PPONet(nn.Module):
                 m.init_flax_(generator)
         return self
 
+    def load_params_(self, params) -> "PPONet":
+        """Weights from a tree of tensors or numpy arrays under this net's
+        ``state_dict`` names (a checkpoint's ``params``)."""
+        self.load_state_dict({k: torch.as_tensor(v)
+                              for k, v in params.items()})
+        return self
+
     def forward(self, vec, vis):
         raw_v, raw_a = self.trunk(vec, vis)
         return action_softmax(raw_a), raw_v.reshape(raw_v.shape[0], -1)

@@ -18,6 +18,13 @@ rollout's sampling noise comes from a ``torch.Generator`` on the device
 seeded with ``seed`` (kroll is unused); ``train_iteration(gumbel=...)``
 takes given noise instead, so a test can replay JAX's draws.
 
+``state_dict()``/``load_state_dict()`` carry the whole trainer state (the
+net, Adam's moments, steps and lr, the compressors, ``update_count``,
+``total_steps`` and the key) through ``runtime/checkpoint.py``;
+``resume`` and ``init_params`` are the CLI's ``--resume`` and
+``--init-from`` (drl_tetris_tpu/cli/main.py:315-362).  The env state is
+not saved: a resumed run resets its games, as the JAX package's does.
+
 League-pool opponents and reward shapers wait for a later slice (ROADMAP
 item 9).
 """
@@ -30,7 +37,8 @@ from typing import Any, Optional
 import torch
 
 from drl_tetris_tpu_torch import resolve_device
-from drl_tetris_tpu_torch.algos.ppo import (PPOConfig, make_ppo_update,
+from drl_tetris_tpu_torch.algos.ppo import (CompressorState, PPOConfig,
+                                            make_ppo_update,
                                             segment_to_batch,
                                             set_learning_rate)
 from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn
@@ -108,6 +116,81 @@ class StandaloneTrainer:
         self.total_steps = 0
         self.stats = {}
         self.phase_ms = {}
+
+    def ppo_state_dict(self) -> dict:
+        """The learner's state as a nested dict of tensors under the net's
+        parameter names (the form of ``models/convert.ppo_state_from_flax``):
+        ``params``; ``adam`` (``lr``, ``betas``, ``eps`` and per parameter
+        ``step``, ``exp_avg``, ``exp_avg_sq``; zeros at step 0 before the
+        first update); ``adv_comp``, ``vloss_comp``; ``update_count``.
+        The tensors are the live ones, not copies."""
+        opt = self.state.optimizer
+        group = opt.param_groups[0]
+        adam = {"lr": float(group["lr"]),
+                "betas": tuple(float(b) for b in group["betas"]),
+                "eps": float(group["eps"]),
+                "step": {}, "exp_avg": {}, "exp_avg_sq": {}}
+        for name, p in self.net.named_parameters():
+            st = opt.state.get(p)
+            adam["step"][name] = st["step"] if st else torch.zeros(())
+            for k in ("exp_avg", "exp_avg_sq"):
+                adam[k][name] = st[k] if st else torch.zeros_like(p)
+        return {"params": self.net.state_dict(), "adam": adam,
+                "adv_comp": self.state.adv_comp._asdict(),
+                "vloss_comp": self.state.vloss_comp._asdict(),
+                "update_count": int(self.state.update_count)}
+
+    def load_ppo_state(self, sd: dict):
+        """Set the learner's state from ``ppo_state_dict``'s form (tensors
+        or numpy arrays, on any device)."""
+        dev = self.device
+        self.net.load_params_(sd["params"])
+        opt = self.state.optimizer
+        adam = sd["adam"]
+        for group in opt.param_groups:
+            group["lr"] = float(adam["lr"])
+            group["betas"] = tuple(float(b) for b in adam["betas"])
+            group["eps"] = float(adam["eps"])
+        for name, p in self.net.named_parameters():
+            # torch keeps Adam's step as a float32 host tensor
+            opt.state[p] = {
+                "step": torch.as_tensor(adam["step"][name]).to(
+                    "cpu", torch.float32).clone(),
+                **{k: torch.as_tensor(adam[k][name]).to(dev, p.dtype).clone()
+                   for k in ("exp_avg", "exp_avg_sq")}}
+
+        def comp(c):
+            return CompressorState(*[torch.as_tensor(c[k]).to(
+                dev, torch.float32).clone() for k in CompressorState._fields])
+        self.state.adv_comp = comp(sd["adv_comp"])
+        self.state.vloss_comp = comp(sd["vloss_comp"])
+        self.state.update_count = int(sd["update_count"])
+
+    def state_dict(self) -> dict:
+        """``ppo_state_dict`` plus ``total_steps`` and the key."""
+        return {**self.ppo_state_dict(), "total_steps": int(self.total_steps),
+                "key": self.key}
+
+    def load_state_dict(self, sd: dict):
+        """The whole trainer state back, as ``state_dict`` gave it."""
+        self.load_ppo_state(sd)
+        self.total_steps = int(sd["total_steps"])
+        self.key = torch.as_tensor(sd["key"]).to(self.device, torch.int64)
+
+    def resume(self, state: dict, step: int):
+        """``train --resume`` on a fresh trainer (cli/main.py:315-345):
+        the learner's state from ``state`` (a checkpoint of this run, or a
+        converted JAX ``PPOState``), ``total_steps = step``, and the key
+        chain moved past the first segment with ``fold_in(key, step)``.
+        The games keep their fresh reset."""
+        self.load_ppo_state(state)
+        self.total_steps = int(step)
+        self.key = rng.fold_in(self.key, int(step))
+
+    def init_params(self, params: dict):
+        """``train --init-from`` (cli/main.py:346-362): a checkpoint's net
+        weights into this trainer; Adam and the compressors stay fresh."""
+        self.net.load_params_(params)
 
     def train_iteration(self, gumbel: Optional[torch.Tensor] = None):
         """One worker segment and one PPO update (trainer.py:71-75);
