@@ -27,8 +27,11 @@ points a user calls, and times them:
 4. the training iteration, the main path: StandaloneTrainer with the
    r5_learning settings (config.load), 1024 games x horizon 64, minibatch
    64, 4 epochs (4,096 Adam steps), the full-width bf16 net from
-   flax-matched initial weights.  One warm-up iteration, then one timed:
-   the one-tick entry must launch exactly 64 times in it, every stat be
+   flax-matched initial weights.  One warm-up iteration at the same
+   shapes with its update cut to one epoch (1,024 steps: the cut that
+   keeps the later phases inside the time limit), then one timed
+   iteration: the one-tick entry must launch exactly 64 times in it, every
+   stat be
    finite, the parameters move and Adam's lr equal the schedule's value.
    Prints train env-steps/s, the rollout / GAE / update split, ms per Adam
    step, the iteration's FLOPs from the conv shapes (torch's flop counter
@@ -58,9 +61,36 @@ points a user calls, and times them:
      reward and done, as the kernel computed them in the run, must equal
      the plain version's from the same state and actions; match
      env-steps/s;
-6. the engine path (the random-policy throughput run): the T-tick entry
+   - ``train`` with the DQN stack (``default sventon sventon_dqn resblock
+     experiment_sventon_dqn``) at 128 games x horizon 64, 2 iterations (an
+     update each: 8,192 rows fill the 8,192-sample batch) with a league
+     round, then ``train --resume`` for a third (the replay restarts empty
+     and refills in that iteration);
+   - ``train`` on the PPO stack with league-pool opponents and the
+     linear reward shaper (``pool_prob=1.0 pool_every=1 pool_mode=pfsp
+     reward_shaper=linear_reshaping reward_shaper_param=0.5``) at 128 x
+     32 for 3 iterations: iterations 2 and 3 play the pool, the learner
+     first and then second;
+   - ``eval`` of the DQN run against the PPO pool run and random, 64
+     games per pair, with the same table checks;
+6. SVENton-DQN (phase_dqn), this slice's path: StandaloneDQNTrainer with
+   the DQN stack resolved by ``config.presets.load`` (the 'silver' QNet at
+   the resblock widths, 3 x 64 and 4 x 64 towers, bf16; pareto sampling;
+   k = 37 with the step filter (2, 3), 13 steps; 8,192 samples per update
+   in minibatches of 32 over 3 epochs, 768 Adam steps; rank replay of
+   2,000,000 rows on the card), 1024 games x horizon 64.  One warm-up
+   iteration, then one timed: exactly 64 one-tick launches, no host sync
+   inside the update (torch's sync debug mode set to error around it), the
+   replay holding at least 8,192 rows, every stat finite, the parameters
+   moved, the reference net equal to the net after the update, the sampled
+   rows' priorities rewritten from 2.0.  Prints DQN env-steps/s, the rollout /
+   replay add / targets / update split, ms per Adam step, the replay's
+   bytes and the targets' FLOPs; and holds one update on 256 samples of
+   the replay (8 steps) at float32 without TF32 on the card against the
+   CPU (sampled rows, targets, first-step gradients, new priorities);
+7. the engine path (the random-policy throughput run): the T-tick entry
    at 4096 boards with in-kernel random actions;
-7. times: kernel, plain version and bound of each entry at the shape its
+8. times: kernel, plain version and bound of each entry at the shape its
    path gives it (the timed kernel and plain outputs are held equal too),
    the rollout's env-steps/s.  The bound is the larger of the bytes side
    (state read and written once over the memory rate) and the operations
@@ -77,6 +107,7 @@ no CUDA device.  A copy of the results goes to chiprun_out/chip_smoke.json.
 """
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -102,6 +133,7 @@ N_RAGGED, T_EXTRA = 1001, 48       # ragged game count (its last block of 4
                                    # comparisons
 DEV = "cuda"
 TRAIN_EPOCHS = 4                   # the recipe's; a cut is printed
+WARM_EPOCHS = 1                    # phase_train's warm-up update (cut)
 TRAIN_SEED = 7
 H100_BF16_FLOPS = 989e12           # dense bf16 peak, H100 SXM data sheet
 # the update on the card against the CPU, float32 without TF32, from seeded
@@ -116,6 +148,16 @@ CLI_LEAGUE_GAMES = 16               # league games per pair
 CLI_EVAL_GAMES = 64                 # CLI eval games per pair
 EVAL_GAMES = 64                     # in-process round robin, per pair
 CLI_TIMEOUT = 600                   # seconds for one CLI process
+DQN_PRESETS = ("default", "sventon", "sventon_dqn", "resblock",
+               "experiment_sventon_dqn")
+DQN_SEED = 11
+CLI_DQN_HORIZON = 64                # 128 x 64 = 8,192 rows: an update each
+# the DQN update on the card against the CPU, float32 without TF32, on 256
+# samples of the replay (8 steps): targets relative to their largest
+# |value|, first-step gradients as the PPO check's, new priorities
+# absolute (|q - target| after 8 Adam steps)
+DQN_TARGET_TOL = 1e-4
+DQN_PRIO_TOL = 2e-3
 
 
 def log(*a):
@@ -374,6 +416,7 @@ def phase_train(results, card):
     from torch.utils.flop_counter import FlopCounterMode
 
     from drl_tetris_tpu_torch import config
+    from drl_tetris_tpu_torch.algos.ppo import make_ppo_update
     from drl_tetris_tpu_torch.algos.rollout import policy_inputs
     from drl_tetris_tpu_torch.config.parameter import param_eval
     from drl_tetris_tpu_torch.engine import cuda_tick
@@ -391,10 +434,17 @@ def phase_train(results, card):
                            n_envs=N_SLICE, horizon=HORIZON, seed=TRAIN_SEED,
                            lr_schedule=mc.value_lr)
     tr = StandaloneTrainer(cfg, device=DEV)
+    # the warm-up is a whole iteration at the timed shapes (cuDNN,
+    # allocator) with its update cut to WARM_EPOCHS epochs: the depth of
+    # this earlier path is cut so that the later slices' phases fit
+    full_update = tr.update
+    tr.update = make_ppo_update(cfg.env.engine, tr.net, dataclasses.replace(
+        ppo, n_train_epochs=WARM_EPOCHS))[1]
     t0 = time.perf_counter()
-    tr.train_iteration()                      # cuDNN, allocator
+    tr.train_iteration()
     sync()
     warm_s = time.perf_counter() - t0
+    tr.update = full_update
     before = [p.detach().clone() for p in tr.net.parameters()]
     steps_before = tr.total_steps
     for k in cuda_tick.LAUNCHES:
@@ -450,7 +500,8 @@ def phase_train(results, card):
     cuda_tick.raise_if_overflowed(tr.env_state.current_player.device)
     log(f"[train] {card}: StandaloneTrainer r5_learning, {N_SLICE} games x "
         f"{HORIZON} ticks, minibatch {mb}, {ppo.n_train_epochs} epochs "
-        f"({n_steps} Adam steps), bf16 net; warm-up iteration {warm_s:.1f} "
+        f"({n_steps} Adam steps), bf16 net; warm-up iteration "
+        f"({WARM_EPOCHS} epoch) {warm_s:.1f} "
         f"s, timed iteration {secs:.3f} s = {sps:.1f} train env-steps/s")
     log(f"[train] {card}: rollout {phase['rollout']:.1f} ms, GAE "
         f"{phase['gae']:.2f} ms, update {phase['update']:.1f} ms = "
@@ -720,6 +771,81 @@ def phase_cli(results, card):
         f"{eval_s:.1f} s: wins {w_a}, losses {w_b}, draws {draws}; Elo "
         f"{ratings}")
 
+    # 3b. the DQN stack through train and train --resume; league-pool PPO
+    # with the reward shaper; eval of the three
+    dqn_iter = CLI_ENVS * CLI_DQN_HORIZON
+    dqn_dir = os.path.join(d, "models", "dqn")
+    dqn_train = ["train", "--presets", *DQN_PRESETS, "--data-dir", d,
+                 "--run-id", "dqn", "--n-envs", str(CLI_ENVS), "--horizon",
+                 str(CLI_DQN_HORIZON), "--seed", "7", "--save-every", "1",
+                 "--league-every", "2", "--league-games",
+                 str(CLI_LEAGUE_GAMES)]
+    out4, dqn_s = run_cli(dqn_train + ["--steps", str(2 * dqn_iter)],
+                          "train (dqn)")
+    dqn_sps = iteration_sps(out4)
+    if sorted(dqn_sps) != [dqn_iter, 2 * dqn_iter] or \
+            "[league] step" not in out4:
+        raise AssertionError(f"train (dqn) printed:\n{out4}")
+    out5, dqn_resume_s = run_cli(dqn_train + ["--steps", str(3 * dqn_iter),
+                                              "--resume"],
+                                 "train --resume (dqn)")
+    if f"[resume] restored {dqn_dir} @ step {2 * dqn_iter:,}" not in out5 \
+            or ckpt.latest_step(dqn_dir) != 3 * dqn_iter:
+        raise AssertionError(f"train --resume (dqn):\n{out5}")
+    raw = ckpt.restore_raw(dqn_dir)
+    if raw["update_count"] != 3 or "ref_params" not in raw:
+        raise AssertionError(f"the DQN run made {raw['update_count']} "
+                             f"updates, not 3")
+    pool_dir = os.path.join(d, "models", "pool")
+    out6, pool_s = run_cli(
+        ["train", "--presets", *CLI_PRESETS, "r5_learning", "--data-dir", d,
+         "--run-id", "pool", "--n-envs", str(CLI_ENVS), "--horizon",
+         str(CLI_HORIZON), "--seed", "7", "--save-every", "1", "--steps",
+         str(3 * per_iter), "--set", "pool_prob=1.0", "pool_every=1",
+         "pool_mode=pfsp", "reward_shaper=linear_reshaping",
+         "reward_shaper_param=0.5"], "train (pool)")
+    with open(os.path.join(d, "summaries", "pool.jsonl")) as f:
+        pool_lines = [json.loads(x) for x in f]
+    pool_wr = [x.get("pool/opponent_winrate_ema") for x in pool_lines]
+    if [x["step"] for x in pool_lines] != [per_iter, 2 * per_iter,
+                                           3 * per_iter] \
+            or pool_wr[0] is not None or None in pool_wr[1:]:
+        raise AssertionError(f"train (pool): win-rate EMAs {pool_wr}")
+    if sorted(os.listdir(cuda_tick.BUILD_DIR)) != built:
+        raise AssertionError("a CLI process rebuilt the kernel")
+    names3 = ["dqn", "pool", "random"]
+    out7, eval3_s = run_cli(["eval", dqn_dir, pool_dir, "random", "--games",
+                             str(CLI_EVAL_GAMES)], "eval (dqn, pool)")
+    table, _, rest = out7.partition("Draws (games undecided at the tick "
+                                    "limit):")
+    draw_text, _, elo_text = rest.partition("Elo (Bradley-Terry MLE):")
+    cells3, totals3 = score_table(table, names3)
+    ratings3 = dict(re.findall(r"(\S+)\s+(-?\d+\.\d)", elo_text))
+    draws3 = {(a, b): int(n) for a, b, n in
+              re.findall(r"(\S+) vs (\S+): (\d+)", draw_text)}
+    for a, b in itertools.combinations(names3, 2):
+        (w_ab, g_ab), (w_ba, g_ba) = cells3[(a, b)], cells3[(b, a)]
+        if g_ab != CLI_EVAL_GAMES or g_ba != CLI_EVAL_GAMES or \
+                w_ab + w_ba + draws3.get((a, b), -1) != CLI_EVAL_GAMES:
+            raise AssertionError(f"eval (dqn, pool) output:\n{out7}")
+    if set(ratings3) != set(names3) or totals3 != {
+            a: sum(cells3[(a, b)][0] for b in names3 if b != a)
+            for a in names3}:
+        raise AssertionError(f"eval (dqn, pool) output:\n{out7}")
+    log(f"[cli] {card}: train (dqn stack) {CLI_ENVS} x {CLI_DQN_HORIZON}, "
+        f"2 iterations (an update each) and a league round in {dqn_s:.1f} "
+        f"s, the second iteration {dqn_sps[2 * dqn_iter]:.1f} DQN "
+        f"env-steps/s as the CLI prints it; --resume to "
+        f"{3 * dqn_iter} steps (update count 3) in {dqn_resume_s:.1f} s; "
+        f"train (pool, pfsp, linear_reshaping 0.5) {CLI_ENVS} x "
+        f"{CLI_HORIZON}, 3 iterations in {pool_s:.1f} s, opponent win-rate "
+        f"EMAs {pool_wr[1:]}; eval dqn, pool, random ({CLI_EVAL_GAMES} "
+        f"games per pair) in {eval3_s:.1f} s: wins {dict(cells3)}, draws "
+        f"{draws3}, Elo {ratings3}")
+    results.update(cli_dqn_s=dqn_s, cli_dqn_resume_s=dqn_resume_s,
+                   cli_dqn_sps=dqn_sps[2 * dqn_iter], cli_pool_s=pool_s,
+                   cli_eval3_s=eval3_s, cli_eval3_elo=ratings3)
+
     # 4. a round robin in process at full width: one launch per match tick
     e = tr.cfg.env.engine
     rnd = PPONet(tr.cfg.model, board=(e.height, e.width), device=DEV)
@@ -784,6 +910,210 @@ def phase_cli(results, card):
         cli_eval=dict(wins=w_a, losses=w_b, draws=draws, elo=ratings),
         eval_launches=launches["step"], eval_ticks=ticks,
         match_s=rr_s, match_sps=match_sps)
+
+
+def phase_dqn(results, card):
+    """SVENton-DQN at the full DQN stack: the pareto rollout with the
+    one-tick entry, the 2M-row rank replay on the card, k-step targets
+    through the reference net, IS-weighted Q steps with Adam."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from drl_tetris_tpu_torch.algos import dqn as D
+    from drl_tetris_tpu_torch.algos.rollout import policy_inputs
+    from drl_tetris_tpu_torch.config.presets import load
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.runtime.standalone import (
+        StandaloneDQNConfig, StandaloneDQNTrainer)
+    fw = load(DQN_PRESETS)
+    cfg = StandaloneDQNConfig(
+        env=fw.env, model=fw.model, dqn=fw.dqn, replay=fw.replay,
+        n_envs=N_SLICE, horizon=HORIZON,
+        train_distribution=fw.train_distribution, epsilon=fw.epsilon,
+        action_temperature=fw.action_temperature,
+        tau_learning_rate=fw.tau_learning_rate, seed=DQN_SEED)
+    tr = StandaloneDQNTrainer(cfg, device=DEV)
+    t0 = time.perf_counter()
+    tr.train_iteration()                      # cuDNN, allocator
+    sync()
+    warm_s = time.perf_counter() - t0
+    before = [p.detach().clone() for p in tr.net.parameters()]
+    updates_before = tr.state.update_count
+    written = []                              # the update's prio write
+
+    def record(st, idx, new):
+        written.append((idx, st.prio[idx].clone()))
+        out = update_prios(st, idx, new)
+        written[-1] += (st.prio[idx].clone(),)
+        return out
+    update_prios = D.replay_update_prios
+    D.replay_update_prios = record
+    update = tr.update
+
+    def update_without_sync(*args, **kwargs):
+        # the update reads nothing back to the host: a sync raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return update(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    tr.update = update_without_sync
+    try:
+        for k in cuda_tick.LAUNCHES:
+            cuda_tick.LAUNCHES[k] = 0
+        sync()
+        t0 = time.perf_counter()
+        stats = tr.train_iteration()
+        sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_tick.LAUNCHES)
+    finally:
+        D.replay_update_prios = update_prios
+        tr.update = update
+    phase = dict(tr.phase_ms)
+
+    if launches["step"] != HORIZON or launches["rollout"] != 0:
+        raise AssertionError(f"launches {launches}: the one-tick entry must "
+                             f"carry each of the {HORIZON} env steps")
+    n = cfg.dqn.n_samples_each_update
+    if tr.replay.size < n or tr.state.update_count != updates_before + 1 \
+            or len(written) != 1:
+        raise AssertionError(f"replay {tr.replay.size} rows, update count "
+                             f"{tr.state.update_count}: no update ran")
+    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+    if bad or not stats:
+        raise AssertionError(f"stats not finite: {bad or stats}")
+    moved = max((p.detach() - b).abs().max().item()
+                for p, b in zip(tr.net.parameters(), before))
+    if not moved > 0.0:
+        raise AssertionError("the update did not change the parameters")
+    if not all(torch.equal(p, r) for p, r in
+               zip(tr.net.parameters(), tr.state.ref_net.parameters())):
+        raise AssertionError("the reference net differs from the net after "
+                             "the update (time_to_reference_update 1)")
+    idx, prio_before, prio_after = written[0]
+    was_new = prio_before == 2.0
+    rewritten = int((was_new & (prio_after != 2.0)).sum())
+    if idx.numel() != n or int(was_new.sum()) == 0 or \
+            rewritten < 0.99 * int(was_new.sum()):
+        raise AssertionError(f"{int(was_new.sum())} sampled rows at prio "
+                             f"2.0, {rewritten} rewritten")
+
+    steps = cfg.dqn.n_train_epochs * (n // cfg.dqn.minibatch_size)
+    n_env_steps = N_SLICE * HORIZON
+    sps = n_env_steps / secs
+    replay_bytes = tr.replay.nbytes()
+    # the targets: one reference forward per kept step over the sample
+    obs = tr.env.observe(tr.env_state)
+    vec, vis = policy_inputs(obs)
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        tr.net([v[:64] for v in vec], [v[:64] for v in vis])
+    fwd = fc.get_total_flops() / 64
+    k_steps = len(cfg.dqn.estimator.steps)
+    target_flops = k_steps * n * fwd
+    cuda_tick.raise_if_overflowed(tr.env_state.current_player.device)
+    log(f"[dqn] {card}: StandaloneDQNTrainer {' '.join(DQN_PRESETS)}, "
+        f"{N_SLICE} games x {HORIZON} ticks, {cfg.train_distribution}, "
+        f"k {cfg.dqn.estimator.k_step} ({k_steps} steps), {n} samples in "
+        f"minibatches of {cfg.dqn.minibatch_size} x "
+        f"{cfg.dqn.n_train_epochs} epochs ({steps} Adam steps), "
+        f"{cfg.model.compute_dtype} QNet; "
+        f"warm-up iteration {warm_s:.1f} s, timed iteration {secs:.3f} s = "
+        f"{sps:.1f} DQN env-steps/s")
+    log(f"[dqn] {card}: rollout {phase['rollout']:.1f} ms, replay add "
+        f"{phase['replay_add']:.2f} ms, sample + targets "
+        f"{phase['targets']:.1f} ms, update {phase['update']:.1f} ms = "
+        f"{phase['update'] / steps:.3f} ms per Adam step, no host sync in "
+        f"the update; one-tick launches {launches['step']}; replay "
+        f"{tr.replay.size} of "
+        f"{cfg.replay.capacity} rows, {replay_bytes} bytes on the card "
+        f"({replay_bytes / cfg.replay.capacity:.0f} per row)")
+    log(f"[dqn] {card}: targets {k_steps} forwards x {n} samples x "
+        f"{fwd / 1e9:.4f} GFLOP = {target_flops / 1e12:.3f} TFLOP; "
+        f"{rewritten} of {int(was_new.sum())} sampled rows at prio 2.0 "
+        f"rewritten; loss {stats['tot_loss']:.5f}, q {stats['q_val']:.4f}, "
+        f"target {stats['q_target']:.4f}, max |dparam| {moved:.3e}")
+    results.update(
+        dqn_s=secs, dqn_sps=sps, dqn_warm_s=warm_s, dqn_phase_ms=phase,
+        dqn_ms_per_step=phase["update"] / steps, dqn_steps=steps,
+        dqn_launches=launches["step"], dqn_replay_bytes=replay_bytes,
+        dqn_target_flops=target_flops, dqn_fwd_flops=fwd, dqn_stats=stats)
+    dqn_update_card_vs_cpu(results, card, tr)
+
+
+def dqn_update_card_vs_cpu(results, card, tr):
+    """One DQN update on 256 samples (8 minibatch steps) at float32 with
+    TF32 off, on the card and on the CPU, from weights drawn from a numpy
+    seed, over a copy of the first rows of ``tr``'s replay and the same
+    injected gumbel noise: the sampled rows, their targets, the first-step
+    gradients and the new priorities."""
+    from drl_tetris_tpu_torch.algos import dqn as D
+    from drl_tetris_tpu_torch.algos.replay import ReplayState
+    from drl_tetris_tpu_torch.engine import rng
+    from drl_tetris_tpu_torch.models.convert import seeded_state_dict
+    from drl_tetris_tpu_torch.models.nets import ModelConfig, QNet
+
+    cfg = dataclasses.replace(tr.cfg.dqn, n_samples_each_update=256,
+                              n_train_epochs=1)
+    rows = 4096
+    rcfg = dataclasses.replace(tr.cfg.replay, capacity=rows)
+    src = tr.replay
+    cpu_replay = ReplayState(
+        **{f: getattr(src, f)[:rows].cpu() for f in
+           ("occ", "vec", "piece", "rot", "trans", "reward", "done",
+            "prio")}, cursor=rows - rcfg.k_step, size=rows - rcfg.k_step)
+    engine = tr.env.cfg.engine
+    model = ModelConfig(**{**dataclasses.asdict(tr.cfg.model),
+                           "compute_dtype": "float32"})
+    gumbel = -torch.log(-torch.log(torch.rand(
+        rows, generator=torch.Generator().manual_seed(5)).clamp(min=1e-30)))
+
+    def run(dev):
+        net = QNet(model, board=(engine.height, engine.width), device=dev)
+        net.load_state_dict(seeded_state_dict(net, 3))
+        st = ReplayState(**{k: (v.to(dev).clone() if torch.is_tensor(v)
+                                else v)
+                            for k, v in vars(cpu_replay).items()})
+        key = rng.prng_key(21, dev)
+        init_fn, update_fn = D.make_dqn_update(engine, net, cfg, rcfg)
+        state = init_fn()
+        idx, iw, samples, kp = D.sample_for_update(
+            engine, cfg, rcfg, state.ref_net, st, key, 0.7, 0.7,
+            gumbel.to(dev))
+        grads, _, _ = D.first_step_gradients(engine, cfg, net, samples, iw,
+                                             kp)
+        update_fn(state, st, key, 0.7, 0.7, gumbel.to(dev))
+        return (idx.cpu(), samples["target"].cpu(),
+                {k: g.cpu() for k, g in grads.items()}, st.prio.cpu())
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        c_idx, c_tgt, c_grads, c_prio = run(DEV)
+        h_idx, h_tgt, h_grads, h_prio = run("cpu")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    same_rows = bool(torch.equal(c_idx, h_idx))
+    tgt_err = ((c_tgt - h_tgt).abs().max()
+               / h_tgt.abs().max().clamp(min=1e-30)).item()
+    grad_err = max(((c_grads[k] - g).abs().max()
+                    / g.abs().max().clamp(min=1e-30)).item()
+                   for k, g in h_grads.items())
+    prio_err = (c_prio - h_prio).abs().max().item()
+    log(f"[dqn] {card}: update card vs cpu, float32, TF32 off, 256 samples "
+        f"of {rows} replay rows, 8 steps: sampled rows equal {same_rows}; "
+        f"targets {tgt_err:.3e} of the largest (tolerance {DQN_TARGET_TOL}), "
+        f"first-step gradients {grad_err:.3e} of each leaf's max "
+        f"(tolerance {UPDATE_GRAD_TOL}), new priorities {prio_err:.3e} "
+        f"absolute (tolerance {DQN_PRIO_TOL})")
+    if not (same_rows and tgt_err < DQN_TARGET_TOL
+            and grad_err < UPDATE_GRAD_TOL and prio_err < DQN_PRIO_TOL):
+        raise AssertionError("the DQN update on the card disagrees with the "
+                             "CPU")
+    results.update(dqn_target_err=tgt_err, dqn_grad_err=grad_err,
+                   dqn_prio_err=prio_err)
 
 
 def phase_engine(results, card):
@@ -971,6 +1301,7 @@ def phase_times(results, card, baseline=None):
                               if k.startswith("step")] + [step_err]),
              ms=step_ms, plain_ms=step_plain_ms, bound_ms=sb, bound_by=sby,
              library_ms=None,
+             dqn_launches=results["dqn_launches"],
              path="training iteration (StandaloneTrainer.train_iteration)",
              shape=f"{N_SLICE} games x 1 tick", wrapper_ms=wrap_ms,
              bytes_ms=sb_bytes, ops_ms=sb_ops),
@@ -1028,7 +1359,7 @@ def main():
     t0 = time.perf_counter()
     baseline = phase_build(results, card, opts.baseline)
     for phase in (phase_kernel_vs_plain, phase_selfplay, phase_train,
-                  phase_cli, phase_engine):
+                  phase_cli, phase_dqn, phase_engine):
         t = time.perf_counter()
         phase(results, card)
         log(f"[{phase.__name__}] done in {time.perf_counter() - t:.1f} s")
@@ -1040,7 +1371,8 @@ def main():
               "w") as f:
         json.dump(results, f, indent=1)
     log(f"train {results['train_sps']:.1f} env-steps/s (train_mfu "
-        f"{results['train_mfu']:.5f}), CLI train {results['cli_train_sps']:.1f}"
+        f"{results['train_mfu']:.5f}), DQN {results['dqn_sps']:.1f} "
+        f"env-steps/s, CLI train {results['cli_train_sps']:.1f}"
         f" env-steps/s at {CLI_ENVS} x {CLI_HORIZON}, match "
         f"{results['match_sps']:.0f} env-steps/s, checkpoint save "
         f"{results['ckpt_save_ms']:.1f} ms / restore "

@@ -1,8 +1,12 @@
 """SVENton-PPO: the learner update.
 
-Counterpart of ``drl_tetris_tpu/algos/ppo.py`` on the worker-computes-
-advantages path (reference: agents/networks/ppo_nets.py:141-257, the
-trainer loop sventon_agent_ppo_trainer.py:10-77).  The JAX package
+Counterpart of ``drl_tetris_tpu/algos/ppo.py`` (reference:
+agents/networks/ppo_nets.py:141-257, the trainer loop
+sventon_agent_ppo_trainer.py:10-77), on both of its paths: the workers
+compute the advantages (GAE, ``segment_to_batch``, and
+``pool_segment_to_batch`` for league-pool rollouts), or the trainer
+computes k-step targets through a reference net (``segment_to_windows``,
+``workers_computes_advantages=False``).  The JAX package
 compiles epochs x reshuffled minibatches as nested ``lax.scan``s; here they
 are Python loops of eager steps, each one forward, one backward and one
 ``torch.optim.Adam`` step on the net's float32 parameters.  Nothing in the
@@ -19,9 +23,20 @@ value loss (agents/networks/compressor.py).
 Each epoch shuffles the batch with ``rng.permutation``, bit-exact with
 ``jax.random.permutation``, so the same key gives the JAX package's
 minibatches.
+
+Trainer-computed targets (ppo_nets.create_targets, :227-257): each
+minibatch's targets come from ``value_estimator.kstep_targets`` through
+the reference net, and the advantage is ``values - targets`` with the
+values not detached, so the surrogate's gradient reaches the value stream
+(a faithful quirk of the reference, :256).  After each update the
+reference net syncs when its countdown is at 0 and the countdown reloads
+to ``time_to_reference_update``, else it ticks down
+(sventon_agent_ppo_trainer.py:70-74).  The DQN update syncs by another
+rule (algos/dqn.py); both are the reference's.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
@@ -30,6 +45,8 @@ import torch.nn.functional as F
 
 from drl_tetris_tpu_torch.algos.gae import sventon_gae
 from drl_tetris_tpu_torch.algos.rollout import Segment
+from drl_tetris_tpu_torch.algos.value_estimator import (EstimatorConfig,
+                                                        kstep_targets)
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine.core import EngineConfig
 from drl_tetris_tpu_torch.env.observations import PIECE_SWAP_NP, field_grid
@@ -71,8 +88,8 @@ class PPOConfig:
     compress_advantages: Optional[CompressorConfig] = CompressorConfig()
     compress_value_loss: Optional[CompressorConfig] = CompressorConfig()
     augment_data: bool = False        # mirror augmentation (presets.py:181)
-    # False: the trainer computes k-step targets through a reference net
-    # (ROADMAP item 12); only True is ported
+    # False: workers run the value-stream-free net and ship k-step
+    # windows; the trainer computes targets through a reference net
     workers_computes_advantages: bool = True
     n_step_value_estimates: int = 1
     time_to_reference_update: int = 1
@@ -82,6 +99,16 @@ class PPOConfig:
     @property
     def effective_gamma(self) -> float:
         return -self.gamma if self.single_policy else self.gamma
+
+    @property
+    def estimator(self) -> EstimatorConfig:
+        """The trainer-targets estimator: gamma, and lambda = gae_lambda
+        (ppo_nets.py:241-252, network.py:21-23)."""
+        return EstimatorConfig(
+            k_step=self.n_step_value_estimates, gamma=self.gamma,
+            lam=self.gae_lambda, single_policy=self.single_policy,
+            truncate_aggregation=self.truncate_aggregation,
+            step_filter=self.sparse_value_estimate_filter)
 
 
 class CompressorState(NamedTuple):
@@ -137,6 +164,25 @@ class PPOState:
     adv_comp: CompressorState
     vloss_comp: CompressorState
     update_count: int = 0
+    # trainer-computed targets only: the reference net the estimator
+    # bootstraps through (ppo_nets.py:233-240) and the countdown to its
+    # next sync (sventon_agent_ppo_trainer.py:70-74)
+    ref_net: Optional[torch.nn.Module] = None
+    ref_countdown: Optional[int] = None
+
+
+def frozen_copy(net: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``net`` for a reference net: its own tensors, no grad."""
+    ref = copy.deepcopy(net)
+    ref.requires_grad_(False)
+    return ref
+
+
+def sync_reference(state) -> None:
+    """Copy ``state.net``'s parameters into ``state.ref_net``."""
+    with torch.no_grad():
+        for r, p in zip(state.ref_net.parameters(), state.net.parameters()):
+            r.copy_(p)
 
 
 def augment_batch(engine_cfg: EngineConfig, batch: Batch) -> Batch:
@@ -178,6 +224,65 @@ def segment_to_batch(cfg: PPOConfig, seg: Segment, v_piece_last
     ), stats
 
 
+def pool_segment_to_batch(cfg: PPOConfig, seg: Segment, v_piece_last,
+                          learner_parity: int = 0) -> Tuple[Batch, dict]:
+    """segment_to_batch for a league-pool rollout: GAE over the whole
+    alternating segment (the learner's values at every tick, gamma
+    negated as always), then only the learner's ticks (every second,
+    from ``learner_parity``) are kept."""
+    adv, tgt, stats = sventon_gae(
+        seg.reward, seg.done, seg.v_piece, seg.v_mean, v_piece_last,
+        gamma=cfg.effective_gamma, gae_lambda=cfg.gae_lambda,
+        gve_lambda=cfg.gve_lambda)
+
+    def flat(a):
+        a = a[learner_parity::2]
+        return a.reshape((-1,) + tuple(a.shape[2:]))
+    return Batch(
+        occ=flat(seg.occ), vec=flat(seg.vec), piece=flat(seg.piece),
+        rot=flat(seg.rot), trans=flat(seg.trans), old_prob=flat(seg.prob),
+        advantage=flat(adv), target_v=flat(tgt),
+    ), stats
+
+
+class WindowBatch(NamedTuple):
+    """Samples of the trainer-computes-targets mode: each carries its
+    k-step window of states, rewards and dones (the reference ships these
+    through its k-step replay, ppo_nets.py:35-39)."""
+    occ_w: torch.Tensor     # (B, K+1, 2, H) int32 bits; [:, 0] is trained
+    vec_w: torch.Tensor     # (B, K+1, 2, 12) float32
+    piece: torch.Tensor     # (B,) int32
+    rot: torch.Tensor       # (B,) int32
+    trans: torch.Tensor     # (B,) int32
+    old_prob: torch.Tensor  # (B,) float32
+    reward_w: torch.Tensor  # (B, K+1) float32
+    done_w: torch.Tensor    # (B, K+1) int32
+
+
+def segment_to_windows(cfg: PPOConfig, seg: Segment) -> WindowBatch:
+    """Worker-side packing when the trainer computes targets: raw k-step
+    windows, no GAE.  Windows slide within the segment (t in [0, T-K));
+    the estimator's done mask stops them at a trajectory's end; the
+    segment's last K ticks are not trained on."""
+    K = cfg.n_step_value_estimates
+    T = seg.piece.shape[0]
+    n_t = T - K
+    if n_t <= 0:
+        raise ValueError(f"horizon {T} leaves no {K}-step window")
+
+    def flat(a):
+        return a.reshape((-1,) + tuple(a.shape[2:]))
+
+    def fw(x):                      # (T, N, ...) -> (n_t*N, K+1, ...)
+        return flat(torch.stack([x[j:j + n_t] for j in range(K + 1)], 2))
+    return WindowBatch(
+        occ_w=fw(seg.occ), vec_w=fw(seg.vec),
+        piece=flat(seg.piece[:n_t]), rot=flat(seg.rot[:n_t]),
+        trans=flat(seg.trans[:n_t]), old_prob=flat(seg.prob[:n_t]),
+        reward_w=fw(seg.reward.to(torch.float32)),
+        done_w=fw(seg.done.to(torch.int32)))
+
+
 def set_learning_rate(state: PPOState, lr: float) -> PPOState:
     """Set Adam's learning rate (the Parameter(t) schedule path,
     tools/parameter.py:8-66; the trainer calls this each iteration with
@@ -195,14 +300,20 @@ def entropy_floor(cfg: PPOConfig, n_actions: int) -> float:
                  - (1 - eps) * torch.log(1 - eps))
 
 
-def ppo_loss(engine_cfg: EngineConfig, cfg: PPOConfig, net, mb: Batch,
-             adv_comp: CompressorState, vloss_comp: CompressorState):
-    """(loss, adv_comp', vloss_comp', stats) of one minibatch; the loss
-    carries the graph to the net's parameters, the rest is detached."""
+def ppo_loss(engine_cfg: EngineConfig, cfg: PPOConfig, net, mb,
+             adv_comp: CompressorState, vloss_comp: CompressorState,
+             ref_net=None):
+    """(loss, adv_comp', vloss_comp', stats) of one minibatch (a Batch, or
+    a WindowBatch with ``ref_net`` when the trainer computes targets); the
+    loss carries the graph to the net's parameters, the rest is
+    detached."""
     e = 1e-6
-    grids = field_grid(engine_cfg, mb.occ)                   # (B, 2, H, W)
+    trainer_targets = isinstance(mb, WindowBatch)
+    occ_t, vec_t = (mb.occ_w[:, 0], mb.vec_w[:, 0]) if trainer_targets \
+        else (mb.occ, mb.vec)
+    grids = field_grid(engine_cfg, occ_t)                    # (B, 2, H, W)
     vis = [grids[:, 0, :, :, None], grids[:, 1, :, :, None]]
-    vec = [mb.vec[:, 0, :], mb.vec[:, 1, :]]
+    vec = [vec_t[:, 0, :], vec_t[:, 1, :]]
     pi, v = net(vec, vis)                                    # (B,4,W,7), (B,7)
     B = pi.shape[0]
     dev = pi.device
@@ -210,7 +321,13 @@ def ppo_loss(engine_cfg: EngineConfig, cfg: PPOConfig, net, mb: Batch,
     piece = mb.piece.long()
     prob = pi[idx, mb.rot.long(), mb.trans.long(), piece]
     values = v[idx, piece] if v.shape[-1] > 1 else v[:, 0]
-    target_v = mb.target_v
+    if trainer_targets:
+        target_v = kstep_targets(engine_cfg, ref_net, cfg.estimator, {
+            "occ": mb.occ_w, "vec": mb.vec_w, "reward": mb.reward_w,
+            "done": mb.done_w})
+        advantage_in = values - target_v             # not detached (:256)
+    else:
+        target_v, advantage_in = mb.target_v, mb.advantage
 
     ratio = torch.clamp(prob, min=e) / torch.clamp(mb.old_prob, min=e)
     clipped = torch.clamp(ratio, 1 - cfg.clipping_parameter,
@@ -218,7 +335,7 @@ def ppo_loss(engine_cfg: EngineConfig, cfg: PPOConfig, net, mb: Batch,
     clip_sat = (ratio != clipped).to(torch.float32).mean()
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    adv, adv_sat = mb.advantage, zero
+    adv, adv_sat = advantage_in, zero
     if cfg.compress_advantages is not None:
         adv, adv_comp, adv_sat = compressor_apply(
             cfg.compress_advantages, adv_comp, adv)
@@ -287,19 +404,24 @@ def minibatch_indices(cfg: PPOConfig, n: int, key: torch.Tensor
                         for k in rng.split(key, cfg.n_train_epochs)])
 
 
+def _rows(batch, idx):
+    return type(batch)(*[a.index_select(0, idx) for a in batch])
+
+
 def first_step_gradients(engine_cfg: EngineConfig, cfg: PPOConfig, net,
-                         batch: Batch, key: torch.Tensor):
+                         batch, key: torch.Tensor, ref_net=None):
     """({name: gradient}, stats) of the first minibatch step that
     ``update_fn(state, batch, key)`` takes from fresh compressors at the
-    net's current weights; nothing is stepped.  For holding one update
-    against another (the JAX package's, the CPU's)."""
+    net's current weights (``ref_net``: the reference net of a
+    WindowBatch); nothing is stepped.  For holding one update against
+    another (the JAX package's, the CPU's)."""
     if cfg.augment_data:
         batch = augment_batch(engine_cfg, batch)
     idx = minibatch_indices(cfg, batch.piece.shape[0], key)[0, 0]
     dev = next(net.parameters()).device
     loss, _, _, stats = ppo_loss(
-        engine_cfg, cfg, net, Batch(*[a.index_select(0, idx) for a in batch]),
-        compressor_init(dev), compressor_init(dev))
+        engine_cfg, cfg, net, _rows(batch, idx), compressor_init(dev),
+        compressor_init(dev), ref_net)
     names, params = zip(*net.named_parameters())
     return dict(zip(names, torch.autograd.grad(loss, params))), stats
 
@@ -307,36 +429,47 @@ def first_step_gradients(engine_cfg: EngineConfig, cfg: PPOConfig, net,
 def make_ppo_update(engine_cfg: EngineConfig, net, cfg: PPOConfig):
     """Returns (init_fn(net) -> PPOState, update_fn(state, batch, key) ->
     (state, stats)), the stats those of the last minibatch of the last
-    epoch.  ``key`` is a (2,) key on the net's device."""
-    if not cfg.workers_computes_advantages:
-        raise NotImplementedError(
-            "trainer-computed targets (workers_computes_advantages=False) "
-            "wait for the DQN slice (ROADMAP item 12)")
+    epoch.  ``key`` is a (2,) key on the net's device.  With
+    ``workers_computes_advantages=False`` the batch is a WindowBatch and the
+    state carries the reference net."""
+    trainer_targets = not cfg.workers_computes_advantages
+    if trainer_targets and cfg.augment_data:
+        raise ValueError("mirror augmentation is a worker-computes-"
+                         "advantages feature")
 
     def init_fn(net=net) -> PPOState:
         dev = next(net.parameters()).device
         # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8 outside the sqrt
         opt = torch.optim.Adam(net.parameters(), lr=cfg.lr,
                                betas=(0.9, 0.999), eps=1e-8)
+        # the countdown starts at 0: the first update syncs the reference
+        # (sventon_agent_trainer_base.py:42)
         return PPOState(net=net, optimizer=opt,
                         adv_comp=compressor_init(dev),
-                        vloss_comp=compressor_init(dev))
+                        vloss_comp=compressor_init(dev),
+                        ref_net=frozen_copy(net) if trainer_targets else None,
+                        ref_countdown=0 if trainer_targets else None)
 
-    def update_fn(state: PPOState, batch: Batch, key: torch.Tensor):
+    def update_fn(state: PPOState, batch, key: torch.Tensor):
         if cfg.augment_data:
             batch = augment_batch(engine_cfg, batch)
         idxs = minibatch_indices(cfg, batch.piece.shape[0], key)
         stats = None
         for epoch in idxs:
             for mb_idx in epoch:
-                mb = Batch(*[a.index_select(0, mb_idx) for a in batch])
                 loss, state.adv_comp, state.vloss_comp, stats = ppo_loss(
-                    engine_cfg, cfg, state.net, mb, state.adv_comp,
-                    state.vloss_comp)
+                    engine_cfg, cfg, state.net, _rows(batch, mb_idx),
+                    state.adv_comp, state.vloss_comp, state.ref_net)
                 state.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
                 state.optimizer.step()
         state.update_count += 1
+        if trainer_targets:
+            if state.ref_countdown == 0:
+                sync_reference(state)
+                state.ref_countdown = cfg.time_to_reference_update
+            else:
+                state.ref_countdown -= 1
         return state, stats
 
     return init_fn, update_fn

@@ -1,26 +1,47 @@
-"""Self-play rollout: the worker's acting loop, observe -> PPONet forward ->
+"""Self-play rollout: the worker's acting loop, observe -> net forward ->
 sample -> env step, over a fixed horizon with auto-reset.
 
-Counterpart of ``drl_tetris_tpu/algos/rollout.py`` (``make_rollout_fn``;
-the pool rollout waits for a later slice).  The JAX package scans the
-horizon inside one jitted program; here it is a Python loop, and each
-tick's env step is one launch of the engine kernel's one-tick entry on the
-card (engine/cuda_tick.py), between two policy forwards.
+Counterpart of ``drl_tetris_tpu/algos/rollout.py`` (``HParams``,
+``make_policy_fn``, ``make_rollout_fn``, ``make_pool_rollout_fn``).  The
+JAX package scans the horizon inside one jitted program; here it is a
+Python loop, and each tick's env step is one launch of the engine kernel's
+one-tick entry on the card (engine/cuda_tick.py), between policy forwards.
 
-Sampling noise comes from an explicit ``torch.Generator``; ``gumbel``
-((horizon, N, R*W)) replaces it with given noise, so a test can follow the
-JAX rollout's draws.
+The policy takes a PPONet (pi, v) or a QNet (Q, V, A), and samples with
+``pi``, ``argmax``, ``epsilon``, ``adaptive_epsilon`` or
+``pareto_distribution``.  ``pi`` and pareto draw gumbel noise from an
+explicit ``torch.Generator``; ``gumbel`` ((horizon, N, R*W)) replaces it
+with given noise, so a test can follow the JAX rollout's draws.  The
+epsilon distributions follow JAX's keys exactly: ``key`` is the rollout's
+key, split into one per tick as JAX splits it.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from drl_tetris_tpu_torch.algos import distributions as D
-from drl_tetris_tpu_torch.engine import cuda_tick
+from drl_tetris_tpu_torch.engine import cuda_tick, rng
 from drl_tetris_tpu_torch.env.env import EnvState, TetrisVectorEnv
 from drl_tetris_tpu_torch.env.observations import Obs
+
+
+class HParams(NamedTuple):
+    """Sampling hyperparameters the trainer evaluates per iteration from
+    their schedules (tools/parameter.py:8-66), as host floats.
+    ``avg_traj_len`` backs ``adaptive_epsilon`` (sventon_agent.py:87-89;
+    EMA from sherlock_agent.py:39,173: init 12); the DQN trainer passes
+    its EMA as a 0-d device tensor, so reading it costs no host sync."""
+    epsilon: float = 0.05        # presets.py:81
+    temperature: float = 1.0     # action_temperature
+    avg_traj_len: float = 12.0   # sherlock_agent.py:39 init
+
+
+EPSILON_DISTRIBUTIONS = ("epsilon", "adaptive_epsilon")
+DISTRIBUTIONS = ("pi", "argmax", "pareto_distribution") \
+    + EPSILON_DISTRIBUTIONS
 
 
 class Segment(NamedTuple):
@@ -50,67 +71,184 @@ def policy_inputs(obs: Obs):
     return [obs.vec[:, 0], obs.vec[:, 1]], [obs.vis[:, 0], obs.vis[:, 1]]
 
 
-def make_policy_fn(env: TetrisVectorEnv, net, distribution: str = "pi"):
-    """sventon_agent.get_action: net forward, a sample over the acting
-    piece's (r, t) plane, and the recorded p(a), v(s|piece), v(s).  The
-    net's weights must be on the env's device."""
-    if distribution not in ("pi", "argmax"):
-        raise NotImplementedError(
-            f"distribution {distribution!r} waits for a later slice")
+def _values(out):
+    """(scores (N, R, W, P), v (N, P|1)) of a PPONet's (pi, v) or a QNet's
+    (Q, V, A): a QNet's scores are Q and its v the broadcast V."""
+    if len(out) == 2:
+        return out
+    q, vq, _ = out
+    return q, vq.reshape(q.shape[0], 1)
+
+
+def _piece_values(v, piece):
+    """(v(s | piece), v(s)) of (N, P|1) values."""
+    idx = torch.arange(v.shape[0], device=v.device)
+    v_piece = v[idx, piece.long()] if v.shape[-1] > 1 else v[:, 0]
+    return v_piece, v.mean(-1)
+
+
+def _check_device(env: TetrisVectorEnv, net):
     dev = next(net.parameters()).device
     if dev.type != env.device.type or (env.device.index is not None
                                        and dev.index != env.device.index):
         raise ValueError(f"the net is on {dev} and the env on {env.device}")
 
-    def policy(env_state: EnvState, generator=None, gumbel=None):
+
+def make_policy_fn(env: TetrisVectorEnv, net, distribution: str = "pi",
+                   epsilon: float = 0.05, temperature: float = 1.0):
+    """sventon_agent.get_action (sventon_agent.py:56-98): net forward, a
+    sample over the acting piece's (r, t) plane, and the recorded p(a)
+    (the Q value for a QNet), v(s|piece), v(s).  The net's weights must be
+    on the env's device.  Returns policy(env_state, generator=None,
+    gumbel=None, key=None, hp=None); the epsilon distributions need
+    ``key``, a (2,) threefry key; ``hp`` (HParams) overrides ``epsilon``
+    and ``temperature``."""
+    if distribution not in DISTRIBUTIONS:
+        raise ValueError(distribution)
+    _check_device(env, net)
+
+    def policy(env_state: EnvState, generator=None, gumbel=None, key=None,
+               hp: Optional[HParams] = None):
+        if hp is None:
+            hp = HParams(epsilon=epsilon, temperature=temperature)
         obs = env.observe(env_state)
         vec, vis = policy_inputs(obs)
-        pi, v = net(vec, vis)                       # (N,4,W,7), (N,7|1)
+        scores, v = _values(net(vec, vis))          # (N,4,W,7), (N,7|1)
         piece = obs.piece[:, 0]
-        n, R, W, P = pi.shape
-        ppi = pi.gather(3, piece.long()[:, None, None, None].expand(
+        n, R, W, P = scores.shape
+        ppi = scores.gather(3, piece.long()[:, None, None, None].expand(
             n, R, W, 1))[..., 0]                    # (N, 4, W)
         if distribution == "pi":
             (r, t), _ = D.action_distribution(ppi, generator, gumbel)
-        else:
+        elif distribution == "argmax":
             (r, t), _ = D.action_argmax(ppi)
+        elif distribution == "epsilon":
+            (r, t), _ = D.action_epsilongreedy(ppi, key, hp.epsilon)
+        elif distribution == "adaptive_epsilon":
+            # epsilon(t) scaled by 1 / avg trajectory length
+            # (sventon_agent.py:87-89), in float32 as JAX computes it
+            atl = hp.avg_traj_len
+            if torch.is_tensor(atl):       # the trainer's device EMA
+                eps = float(np.float32(hp.epsilon)) / torch.clamp(
+                    atl.to(torch.float32), min=1e-6)
+            else:
+                eps = np.float32(hp.epsilon) / np.maximum(
+                    np.float32(atl), np.float32(1e-6))
+            (r, t), _ = D.action_epsilongreedy(ppi, key, eps)
+        else:
+            (r, t), _ = D.action_pareto(ppi, hp.temperature, generator,
+                                        gumbel)
         idx = torch.arange(n, device=ppi.device)
         prob = ppi[idx, r, t]
-        v_piece = v[idx, piece.long()] if v.shape[-1] > 1 else v[:, 0]
+        v_piece, v_mean = _piece_values(v, piece)
         return (obs, piece, r.to(torch.int32), t.to(torch.int32), prob,
-                v_piece, v.mean(-1))
+                v_piece, v_mean)
 
     return policy
 
 
+def _tick_keys(key, horizon: int, distribution: str):
+    """JAX's per-tick keys split(key, horizon) and the bootstrap key
+    fold_in(key, horizon), for the distributions that read them."""
+    if distribution not in EPSILON_DISTRIBUTIONS:
+        return [None] * horizon, None
+    if key is None:
+        raise ValueError(f"distribution {distribution!r} needs the "
+                         "rollout's key")
+    return list(rng.split(key, horizon)), rng.fold_in(key, horizon)
+
+
+def _tick(env, policy, env_state, generator, gumbel, key, hp,
+          values=None):
+    """One acting tick: (env_state', Segment of the tick).  ``values``,
+    when given, recomputes v(s|piece), v(s) from the observation (the
+    learner's values on an opponent's tick)."""
+    player = env_state.current_player
+    obs, piece, r, t, prob, v_piece, v_mean = policy(
+        env_state, generator, gumbel, key, hp)
+    if values is not None:
+        v_piece, v_mean = values(obs, piece)
+    occ = _perspective_occ(env_state, player)
+    env_state, reward, done = env.step(env_state, r, t)
+    return env_state, Segment(occ=occ, vec=obs.vec, piece=piece, rot=r,
+                              trans=t, prob=prob, v_piece=v_piece,
+                              v_mean=v_mean, reward=reward, done=done,
+                              player=player)
+
+
+def _finish(env_state, ticks, policy, generator, gumbel, key, hp):
+    """Stack the ticks; the bootstrap value of the final state (the next
+    acting player's view; it does not depend on the sampled action)."""
+    seg = Segment(*[torch.stack(xs) for xs in zip(*ticks)])
+    _, _, _, _, _, v_piece_last, _ = policy(
+        env_state, generator,
+        None if gumbel is None else torch.zeros_like(gumbel[0]), key, hp)
+    if env_state.current_player.is_cuda:
+        cuda_tick.raise_if_overflowed(env_state.current_player.device)
+    return env_state, seg, v_piece_last
+
+
 def make_rollout_fn(env: TetrisVectorEnv, net, horizon: int,
-                    distribution: str = "pi"):
-    """Returns rollout(env_state, generator=None, gumbel=None)
-    -> (env_state', Segment, v_piece_last)."""
-    policy = make_policy_fn(env, net, distribution)
+                    distribution: str = "pi", **policy_kwargs):
+    """Returns rollout(env_state, generator=None, gumbel=None, key=None,
+    hp=None) -> (env_state', Segment, v_piece_last)."""
+    policy = make_policy_fn(env, net, distribution, **policy_kwargs)
 
     @torch.no_grad()
     def rollout(env_state: EnvState,
-                generator: Optional[torch.Generator] = None, gumbel=None):
+                generator: Optional[torch.Generator] = None, gumbel=None,
+                key=None, hp: Optional[HParams] = None):
+        keys, last_key = _tick_keys(key, horizon, distribution)
         ticks = []
         for k in range(horizon):
-            player = env_state.current_player
-            obs, piece, r, t, prob, v_piece, v_mean = policy(
-                env_state, generator, None if gumbel is None else gumbel[k])
-            occ = _perspective_occ(env_state, player)
-            env_state, reward, done = env.step(env_state, r, t)
-            ticks.append(Segment(occ=occ, vec=obs.vec, piece=piece, rot=r,
-                                 trans=t, prob=prob, v_piece=v_piece,
-                                 v_mean=v_mean, reward=reward, done=done,
-                                 player=player))
-        seg = Segment(*[torch.stack(xs) for xs in zip(*ticks)])
-        # bootstrap value of the final state (next acting player's view);
-        # it does not depend on the sampled action
-        _, _, _, _, _, v_piece_last, _ = policy(
-            env_state, generator,
-            None if gumbel is None else torch.zeros_like(gumbel[0]))
-        if env_state.current_player.is_cuda:
-            cuda_tick.raise_if_overflowed(env_state.current_player.device)
-        return env_state, seg, v_piece_last
+            env_state, seg = _tick(env, policy, env_state, generator,
+                                   None if gumbel is None else gumbel[k],
+                                   keys[k], hp)
+            ticks.append(seg)
+        return _finish(env_state, ticks, policy, generator, gumbel,
+                       last_key, hp)
+
+    return rollout
+
+
+def make_pool_rollout_fn(env: TetrisVectorEnv, net, horizon: int,
+                         distribution: str = "pi", **policy_kwargs):
+    """Self-play against a frozen opponent (league-pool training): the
+    learner ``net`` acts on its parity of ticks, the opponent on the
+    other, and GAE runs on the learner's values at every tick (the
+    opponent only chooses actions); ``pool_segment_to_batch`` keeps the
+    learner's ticks.  Returns rollout(opp_net, env_state, generator=None,
+    gumbel=None, key=None, hp=None, learner_first=True) -> (env_state',
+    Segment, v_piece_last); ``horizon`` must be even and ``learner_first``
+    should alternate across iterations so the learner plays both seats.
+    Every tick is one env step, one launch of the one-tick entry."""
+    if horizon % 2:
+        raise ValueError(f"the pool rollout's horizon {horizon} is odd")
+    policy = make_policy_fn(env, net, distribution, **policy_kwargs)
+
+    def learner_values(obs, piece):
+        vec, vis = policy_inputs(obs)
+        _, v = _values(net(vec, vis))
+        return _piece_values(v, piece)
+
+    @torch.no_grad()
+    def rollout(opp_net, env_state: EnvState,
+                generator: Optional[torch.Generator] = None, gumbel=None,
+                key=None, hp: Optional[HParams] = None,
+                learner_first: bool = True):
+        opponent = make_policy_fn(env, opp_net, distribution,
+                                  **policy_kwargs)
+        seats = (policy, opponent) if learner_first else (opponent, policy)
+        keys, last_key = _tick_keys(key, horizon, distribution)
+        ticks = []
+        for k in range(horizon):
+            acting = seats[k % 2]
+            env_state, seg = _tick(
+                env, acting, env_state, generator,
+                None if gumbel is None else gumbel[k], keys[k], hp,
+                values=None if acting is policy else learner_values)
+            ticks.append(seg)
+        return _finish(env_state, ticks, policy, generator, gumbel,
+                       last_key, hp)
 
     return rollout

@@ -3,7 +3,7 @@
 Counterpart of ``drl_tetris_tpu/cli/main.py`` (reference: the scripts layer,
 scripts/trainer_runscript.py, eval.py, print_settings.py):
 
-  python -m drl_tetris_tpu_torch train          # standalone self-play PPO
+  python -m drl_tetris_tpu_torch train          # standalone self-play PPO/DQN
   python -m drl_tetris_tpu_torch eval CKPT [CKPT...]   # round-robin
   python -m drl_tetris_tpu_torch print-config   # resolved settings dump
 
@@ -11,11 +11,15 @@ Every verb takes ``--device`` (default ``cuda``; ``cpu`` runs the plain
 versions).  Checkpoints are the port's own (runtime/checkpoint.py); a JAX
 run's checkpoint comes across with tools/torch_import_flax_checkpoint.py.
 
+``train`` runs SVENton-PPO (with league-pool opponents, ``--pool-seed``
+and reward shapers from the settings) and SVENton-DQN (``--presets default
+sventon sventon_dqn ...``); ``eval`` mixes PPO and DQN checkpoints.
+
 Not ported yet, each exits with a message naming its ROADMAP item:
 ``train --distributed/--multihost`` and the verbs ``kv``, ``worker``,
-``trainer``, ``up`` (14); ``--pool-seed``, ``pool_prob > 0`` and
-``reward_shaper`` (9); flavours other than PPO and dual-policy training
-(12, 13); ``play`` (15); ``bench`` (10).
+``trainer``, ``up`` (14); the flavours ``sixten`` and ``sherlock`` and
+dual-policy training, ``single_policy=False`` (11, 13); ``play`` (15);
+``bench`` (10).
 """
 from __future__ import annotations
 
@@ -80,7 +84,7 @@ def _load_cfg(args):
 
 _HEADLINE_KEYS = ("losses/total_loss", "losses/policy_loss",
                   "losses/value_loss", "entropy/entropy",
-                  "misc/clip_saturation")
+                  "misc/clip_saturation", "tot_loss", "value_loss", "q_val")
 
 
 def _headline(stats):
@@ -94,9 +98,6 @@ def cmd_train(args):
     if args.distributed or args.multihost:
         raise SystemExit("train --distributed/--multihost: not ported yet, "
                          "see ROADMAP 14 (distributed runtime)")
-    if args.pool_seed:
-        raise SystemExit("--pool-seed: league-pool opponents are not ported "
-                         "yet, see ROADMAP 9")
     if args.experiment:
         # batch runs from the experiment schedule: presets + cumulative
         # patches -> one run per patch with distinct run-ids
@@ -119,21 +120,31 @@ def cmd_train(args):
 
 
 def _check_trainable(cfg):
-    """What the port's trainer runs: single-policy PPO without league-pool
-    opponents or reward shapers."""
-    if cfg.flavour != "ppo":
-        raise SystemExit(f"flavour {cfg.flavour!r}: only ppo is ported; "
-                         "dqn waits for ROADMAP 12, sixten and sherlock for "
-                         "ROADMAP 13")
+    """What the port's trainers run: single-policy PPO and DQN."""
+    if cfg.flavour in ("sixten", "sherlock"):
+        raise SystemExit(f"flavour {cfg.flavour!r} waits for ROADMAP 13 "
+                         "(and its placement masks, ROADMAP 11)")
+    if cfg.flavour not in ("ppo", "dqn"):
+        raise SystemExit(f"unknown flavour {cfg.flavour!r}")
     if not cfg.ppo.single_policy:
         raise SystemExit("single_policy=False (dual-policy training) waits "
                          "for ROADMAP 13")
-    if float(cfg.settings.get("pool_prob", 0.0)) > 0:
-        raise SystemExit("pool_prob > 0: league-pool opponents are not "
-                         "ported yet, see ROADMAP 9")
-    if cfg.settings.get("reward_shaper") not in (None, "none"):
-        raise SystemExit("reward_shaper: reward shapers are not ported yet, "
-                         "see ROADMAP 9")
+
+
+def _make_shaper(cfg):
+    """The settings' reward shaper ("reward_shaper" and
+    "reward_shaper_param", experiments/sventon_base.py:61-62), its amount
+    evaluated at t = 0 as the JAX CLI does; None for none."""
+    from drl_tetris_tpu_torch.algos.reward_shapers import make_shaper
+    from drl_tetris_tpu_torch.config.parameter import param_eval
+    name = cfg.settings.get("reward_shaper")
+    if not name or name == "none":
+        return None
+    amount = float(param_eval(cfg.settings.get("reward_shaper_param", 0.0)))
+    try:
+        return make_shaper(name, amount, cfg.ppo.single_policy)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
 
 def _run_settings(cfg, args, n_envs, horizon):
@@ -157,32 +168,53 @@ def _run_settings(cfg, args, n_envs, horizon):
     return s
 
 
-def _train_one(cfg, args):
-    import torch
+def _make_trainer(cfg, args):
+    """The standalone trainer of ``cfg``'s flavour on ``args.device``."""
+    from drl_tetris_tpu_torch.runtime import standalone as S
+    n_envs = args.n_envs or cfg.n_envs
+    if cfg.flavour == "dqn":
+        scfg = S.StandaloneDQNConfig(
+            env=cfg.env, model=cfg.model, dqn=cfg.dqn, replay=cfg.replay,
+            n_envs=n_envs, horizon=args.horizon,
+            train_distribution=cfg.train_distribution, seed=args.seed,
+            epsilon=cfg.epsilon, action_temperature=cfg.action_temperature,
+            tau_learning_rate=cfg.tau_learning_rate)
+        return S.StandaloneDQNTrainer(scfg, device=args.device)
+    s = cfg.settings
+    scfg = S.StandaloneConfig(
+        env=cfg.env, model=cfg.model, ppo=cfg.ppo, n_envs=n_envs,
+        horizon=args.horizon, seed=args.seed,
+        # raw (possibly scheduled) value_lr: re-evaluated per iteration
+        lr_schedule=s.get("value_lr"),
+        pool_prob=float(s.get("pool_prob", 0.0)),
+        pool_size=int(s.get("pool_size", 4)),
+        pool_every=int(s.get("pool_every", 0)),
+        pool_mode=str(s.get("pool_mode", "uniform")),
+        pool_wr_lr=float(s.get("pool_wr_lr", 0.05)),
+        reward_shaper=_make_shaper(cfg))
+    return S.StandaloneTrainer(scfg, device=args.device)
 
+
+def _train_one(cfg, args):
     from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
     from drl_tetris_tpu_torch.runtime.evaluate import EvalAgent
-    from drl_tetris_tpu_torch.runtime.standalone import (StandaloneConfig,
-                                                         StandaloneTrainer)
     from drl_tetris_tpu_torch.utils.metrics import MetricsWriter, timekeeper
 
     _check_trainable(cfg)
     ckpt_dir = os.path.join(args.data_dir, "models", cfg.run_id)
     metrics_dir = os.path.join(args.data_dir, "summaries")
-
-    scfg = StandaloneConfig(
-        env=cfg.env, model=cfg.model, ppo=cfg.ppo,
-        n_envs=args.n_envs or cfg.n_envs, horizon=args.horizon,
-        seed=args.seed,
-        # raw (possibly scheduled) value_lr: re-evaluated per iteration
-        lr_schedule=cfg.settings.get("value_lr"))
-    tr = StandaloneTrainer(scfg, device=args.device)
+    if args.pool_seed and (cfg.flavour != "ppo" or float(
+            cfg.settings.get("pool_prob", 0.0)) <= 0):
+        raise SystemExit("--pool-seed requires the PPO trainer with "
+                         "pool_prob > 0 (--set pool_prob=...)")
+    tr = _make_trainer(cfg, args)
 
     resumed_from = None
     if args.resume:
         # Crash/preemption recovery: the learner's state from the run's
         # own latest checkpoint, the step count continued from there and
-        # the key chain moved past the opening segment; the env resets.
+        # the key chain moved past the opening segment; the env resets and
+        # a DQN run's replay restarts empty.
         latest = ckpt.latest_step(ckpt_dir)
         if latest is None:
             print(f"[resume] no checkpoint in {ckpt_dir}; starting fresh",
@@ -205,17 +237,21 @@ def _train_one(cfg, args):
         tr.init_params(raw.get("params", raw))
         print(f"[init] params restored from {args.init_from}", flush=True)
 
+    for path in args.pool_seed:
+        # external frozen opponents, played from iteration 0 at pool_prob
+        raw = ckpt.restore_raw(path)
+        tr.seed_pool(raw.get("params", raw))
+        print(f"[pool] seeded opponent from {path}", flush=True)
+
     league = None
     if args.league_every:
-        from drl_tetris_tpu_torch.runtime.league import TrainingLeague
-        # the random anchor: fresh flax-distributed weights from the
-        # generator seed the JAX package keys its anchor with
-        rnd = _new_net(cfg, tr.device).init_flax_(
-            torch.Generator().manual_seed(0xE10))
+        from drl_tetris_tpu_torch.runtime.league import (TrainingLeague,
+                                                         random_anchor)
         anchors = [_load_agent(path, cfg, device=tr.device,
                                name=os.path.basename(path.rstrip("/")))[0]
                    for path in args.league_anchor]
-        league = TrainingLeague(cfg.env, rnd, out_dir=ckpt_dir,
+        league = TrainingLeague(cfg.env, random_anchor(tr.net),
+                                out_dir=ckpt_dir,
                                 games_per_pair=args.league_games,
                                 fixed_anchors=anchors)
         if resumed_from is not None:
@@ -258,8 +294,9 @@ def _train_one(cfg, args):
               + " ".join(f"{k}={v:.0f}" for k, v in
                          sorted(ratings.items())), flush=True)
 
-    steps_per_iter = scfg.n_envs * scfg.horizon
-    run_settings = _run_settings(cfg, args, scfg.n_envs, scfg.horizon)
+    n_envs, horizon = tr.cfg.n_envs, tr.cfg.horizon
+    steps_per_iter = n_envs * horizon
+    run_settings = _run_settings(cfg, args, n_envs, horizon)
     with MetricsWriter(metrics_dir, cfg.run_id) as mw:
         it = 0
         while tr.total_steps < args.steps:
@@ -284,20 +321,22 @@ def _train_one(cfg, args):
 
 
 def _new_net(cfg, device):
-    """An untrained full PPONet for ``cfg``'s model and board."""
-    from drl_tetris_tpu_torch.models.nets import PPONet
+    """An untrained full net of ``cfg``'s flavour (QNet for dqn, else
+    PPONet) for its model and board."""
+    from drl_tetris_tpu_torch.models.nets import PPONet, QNet
     e = cfg.env.engine
-    return PPONet(cfg.model, board=(e.height, e.width), full_network=True,
-                  device=device)
+    cls = QNet if cfg.flavour == "dqn" else PPONet
+    return cls(cfg.model, board=(e.height, e.width), full_network=True,
+               device=device)
 
 
 def _load_agent(path, cfg, device=None, name=None):
     """Build an EvalAgent from a checkpoint, reconstructing it from the
     settings side-file saved next to the weights (the reference's
     weights<->settings pairing, eval.py:99-104, tools/utils.py:47-52), so
-    tournaments can mix model sizes.  ``random`` is a net with fresh
-    weights (the JAX package draws them from PRNGKey(0); the port from a
-    torch.Generator seeded with 0)."""
+    tournaments can mix flavours (PPONet and QNet) and model sizes.
+    ``random`` is a net with fresh weights (the JAX package draws them from
+    PRNGKey(0); the port from a torch.Generator seeded with 0)."""
     import torch
 
     from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
@@ -312,10 +351,9 @@ def _load_agent(path, cfg, device=None, name=None):
             except Exception as e:
                 print(f"warning: {path}: unusable settings side-file ({e}); "
                       "using CLI presets", file=sys.stderr)
-    if cfg.flavour in ("dqn", "sixten", "sherlock"):
+    if cfg.flavour in ("sixten", "sherlock"):
         raise SystemExit(f"{path}: {cfg.flavour} agents are not ported yet "
-                         "(dqn: ROADMAP 12; sixten, sherlock: ROADMAP 11, "
-                         "13)")
+                         "(ROADMAP 11, 13)")
     net = _new_net(cfg, device)
     if path == "random":
         net.init_flax_(torch.Generator().manual_seed(0))
@@ -376,9 +414,7 @@ def cmd_print_config(args):
     print(f"# presets: {args.presets}")
     for section in ("env", "model", "ppo", "dqn", "replay"):
         print(f"\n[{section}]")
-        value = getattr(cfg, section)
-        print(dataclasses.asdict(value) if value is not None
-              else "None (not ported yet, ROADMAP 12)")
+        print(dataclasses.asdict(getattr(cfg, section)))
     print("\n[merged settings]")
     for k in sorted(cfg.settings):
         print(f"  {k:<36} {cfg.settings[k]!r}")
@@ -418,7 +454,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="drl_tetris_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    t = sub.add_parser("train", help="self-play training (PPO, standalone)")
+    t = sub.add_parser("train", help="self-play training (PPO or DQN, "
+                       "standalone)")
     _add_common(t)
     t.add_argument("--steps", type=int, default=10_000_000)
     t.add_argument("--experiment", nargs="*", default=[],
@@ -448,7 +485,9 @@ def main(argv=None):
                    help="warm start: this checkpoint's params into the "
                         "fresh trainer (Adam restarts)")
     t.add_argument("--pool-seed", action="append", default=[],
-                   metavar="CHECKPOINT", help="not ported yet (ROADMAP 9)")
+                   metavar="CHECKPOINT",
+                   help="pre-seed the league-pool opponents with this "
+                        "checkpoint's net (repeatable; needs pool_prob > 0)")
     t.add_argument("--distributed", action="store_true",
                    help="not ported yet (ROADMAP 14)")
     t.add_argument("--multihost", action="store_true",

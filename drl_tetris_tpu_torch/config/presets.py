@@ -6,18 +6,20 @@ preset dictionaries (plain data and registry names), the same layering
 (presets in order, then the experiment dict, patches and CLI overrides),
 and the same typed result.
 
-The port has no DQN, replay, SIXten or Sherlock configs yet (ROADMAP 12,
-13): ``FrameworkConfig.dqn``, ``replay``, ``sixten`` and ``sherlock`` stay
-None.  ``resolve`` accepts every preset all the same, so evaluation and
-``print-config`` read any run's settings; ``train`` refuses what it cannot
-run.
+The port has no SIXten or Sherlock configs yet (ROADMAP 13):
+``FrameworkConfig.sixten`` and ``sherlock`` stay None.  ``resolve``
+accepts every preset all the same, so evaluation and ``print-config`` read
+any run's settings; ``train`` refuses what it cannot run.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Sequence
 
+from drl_tetris_tpu_torch.algos.dqn import DQNConfig
 from drl_tetris_tpu_torch.algos.ppo import CompressorConfig, PPOConfig
+from drl_tetris_tpu_torch.algos.replay import ReplayConfig
+from drl_tetris_tpu_torch.algos.value_estimator import EstimatorConfig
 from drl_tetris_tpu_torch.config.parameter import (ExpParameter,
                                                    LinearParameter,
                                                    Parameter, param_eval)
@@ -229,10 +231,10 @@ class FrameworkConfig:
     env: EnvConfig = EnvConfig()
     model: ModelConfig = ModelConfig()
     ppo: PPOConfig = PPOConfig()
-    dqn: Any = None                   # DQNConfig: ROADMAP 12
+    dqn: DQNConfig = DQNConfig()
     sixten: Any = None                # SixtenConfig: ROADMAP 13
     sherlock: Any = None              # SherlockConfig: ROADMAP 13
-    replay: Any = None                # ReplayConfig: ROADMAP 12
+    replay: ReplayConfig = ReplayConfig()
     flavour: str = "ppo"
     n_envs: int = 30
     train_distribution: str = "pi"
@@ -262,8 +264,9 @@ def merge_settings(presets: Sequence[str], *overlays: Dict[str, Any]
 
 
 def resolve(settings: Dict[str, Any], run_id: str = "run") -> FrameworkConfig:
-    """Validate the merged dict into typed configs (the env, model and PPO
-    parts of the JAX package's ``resolve``, with its defaults)."""
+    """Validate the merged dict into typed configs (the env, model, PPO,
+    DQN and replay parts of the JAX package's ``resolve``, with its
+    defaults)."""
     s = settings
     h, w = s.get("game_size", (22, 10))
     engine = EngineConfig(
@@ -315,8 +318,34 @@ def resolve(settings: Dict[str, Any], run_id: str = "run") -> FrameworkConfig:
         sparse_value_estimate_filter=tuple(
             s.get("sparse_value_estimate_filter", ())),
     )
+    estimator = EstimatorConfig(
+        k_step=s.get("n_step_value_estimates", 5),
+        gamma=s.get("gamma", 0.98),
+        single_policy=s.get("single_policy", True),
+        truncate_aggregation=s.get("truncate_aggregation", True),
+        step_filter=tuple(s.get("sparse_value_estimate_filter", ())),
+    )
+    dqn = DQNConfig(
+        lr=param_eval(s.get("value_lr", 1e-4)),
+        nn_regularizer=s.get("nn_regularizer", 1e-4),
+        n_samples_each_update=s.get("n_samples_each_update", 8192),
+        minibatch_size=s.get("minibatch_size", 32),
+        n_train_epochs=s.get("n_train_epochs_per_update", 3),
+        alpha=s.get("prioritized_replay_alpha", 0.7),
+        beta=s.get("prioritized_replay_beta", 0.7),
+        optimistic_prios=s.get("optimistic_prios", 0.0),
+        time_to_reference_update=s.get("time_to_reference_update", 1),
+        estimator=estimator,
+    )
+    replay = ReplayConfig(
+        capacity=min(s.get("experience_replay_size", 2 * 10**5), 2 * 10**6),
+        k_step=estimator.k_step,
+        height=h,
+        sample_mode={"rank": "rank"}.get(
+            s.get("experience_replay_sample_mode", "rank"), "proportional"),
+    )
     return FrameworkConfig(
-        settings=s, env=env, model=model, ppo=ppo,
+        settings=s, env=env, model=model, ppo=ppo, dqn=dqn, replay=replay,
         flavour=s.get("flavour", "ppo"),
         n_envs=s.get("n_envs_per_thread", 30),
         train_distribution=s.get("train_distribution", "pi"),

@@ -1,14 +1,20 @@
 """Flax parameter trees and train states <-> PyTorch state dicts.
 
-``params_from_flax`` takes the JAX package's PPONet params as a nested dict
-of numpy arrays (what ``drl_tetris_tpu.runtime.checkpoint.restore_raw``
-returns under 'params'; no JAX is needed to convert) and returns a
-``state_dict`` for ``PPONet``; ``params_to_flax`` is its inverse.
-``ppo_state_from_flax`` and ``ppo_state_to_flax`` carry a whole JAX
-``PPOState`` (params, optax Adam state, compressors, update count) to and
-from the port's learner state (``StandaloneTrainer.ppo_state_dict``), as
-numpy trees.  ``seeded_state_dict`` draws a PPONet's weights from a numpy
-seed instead, for runs without a checkpoint.
+``params_from_flax`` takes the JAX package's PPONet or QNet params as a
+nested dict of numpy arrays (what ``drl_tetris_tpu.runtime.checkpoint
+.restore_raw`` returns under 'params'; no JAX is needed to convert) and
+returns a ``state_dict`` for ``PPONet`` or ``QNet`` (both wrap the same
+SventonNet trunk, so their trees and names are the same);
+``params_to_flax`` is its inverse.  ``ppo_state_from_flax`` and
+``ppo_state_to_flax`` carry a whole JAX ``PPOState`` (params, optax Adam
+state, compressors, update count; with trainer-computed targets the
+reference params and their countdown) to and from the port's learner
+state (``StandaloneTrainer.ppo_state_dict``), as numpy trees;
+``dqn_state_from_flax`` and ``dqn_state_to_flax`` do the same for a
+``DQNState`` (params, reference params, Adam, update count;
+``StandaloneDQNTrainer.dqn_state_dict``).  ``seeded_state_dict`` draws
+a net's weights from a numpy seed instead, for runs without a
+checkpoint.
 
 ``params_from_flax`` maps:
 
@@ -145,21 +151,12 @@ def _numpy_tree(sd):
             else np.asarray(v) for k, v in sd.items()}
 
 
-def ppo_state_from_flax(raw) -> Dict[str, Any]:
-    """A JAX ``PPOState`` (drl_tetris_tpu/algos/ppo.py:150) as restored by
-    ``restore_raw`` (nested dicts of numpy arrays) -> the port's learner
-    state as numpy trees: ``params`` (the PPONet state_dict), ``adam``
-    (torch Adam's ``exp_avg``/``exp_avg_sq`` from optax's ``mu``/``nu``,
-    kernels transposed as the weights are; the per-parameter ``step`` from
-    optax's shared ``count``; ``lr`` from ``hyperparams.learning_rate``;
-    ``betas`` and ``eps``), ``adv_comp``/``vloss_comp`` and
-    ``update_count``.  Only the worker-computes-advantages state converts
-    (no reference net)."""
-    if raw.get("ref_params") is not None:
-        raise NotImplementedError(
-            "trainer-computed targets (a reference net in the state) wait "
-            "for ROADMAP 12")
-    opt = raw["opt_state"]
+def _adam_from_flax(opt, params) -> Dict[str, Any]:
+    """optax ``inject_hyperparams(adam)`` state -> torch Adam's, under the
+    names of ``params`` (a port state_dict): ``exp_avg``/``exp_avg_sq``
+    from ``mu``/``nu`` (kernels transposed as the weights are), each
+    parameter's ``step`` from the shared ``count``, ``lr``, ``betas`` and
+    ``eps`` from the hyperparameters."""
     hp = opt["hyperparams"]
     adam = opt["inner_state"][0]
     count = int(np.asarray(adam["count"]))
@@ -167,59 +164,105 @@ def ppo_state_from_flax(raw) -> Dict[str, Any]:
         raise ValueError("optax's outer and inner Adam counts differ")
     if float(np.asarray(hp.get("eps_root", 0.0))) != 0.0:
         raise ValueError("torch Adam has no eps_root")
-    params = _numpy_tree(params_from_flax(raw["params"]))
     return {
-        "params": params,
-        "adam": {
-            "lr": float(np.asarray(hp["learning_rate"])),
-            "betas": (float(np.asarray(hp["b1"])),
-                      float(np.asarray(hp["b2"]))),
-            "eps": float(np.asarray(hp["eps"])),
-            "step": {k: np.asarray(count, np.float32) for k in params},
-            "exp_avg": _numpy_tree(params_from_flax(adam["mu"])),
-            "exp_avg_sq": _numpy_tree(params_from_flax(adam["nu"])),
-        },
-        "adv_comp": {k: np.asarray(raw["adv_comp"][k], np.float32)
-                     for k in ("x_mean", "x_max")},
-        "vloss_comp": {k: np.asarray(raw["vloss_comp"][k], np.float32)
-                       for k in ("x_mean", "x_max")},
-        "update_count": int(np.asarray(raw["update_count"])),
+        "lr": float(np.asarray(hp["learning_rate"])),
+        "betas": (float(np.asarray(hp["b1"])), float(np.asarray(hp["b2"]))),
+        "eps": float(np.asarray(hp["eps"])),
+        "step": {k: np.asarray(count, np.float32) for k in params},
+        "exp_avg": _numpy_tree(params_from_flax(adam["mu"])),
+        "exp_avg_sq": _numpy_tree(params_from_flax(adam["nu"])),
     }
 
 
-def ppo_state_to_flax(state) -> Dict[str, Any]:
-    """The port's learner state (``ppo_state_from_flax``'s form, tensors
-    or arrays) -> a JAX ``PPOState`` tree of numpy arrays, in the layout
-    ``restore_raw`` gives for one saved by the JAX package's
-    ``inject_hyperparams(adam)`` trainer.  Every parameter's Adam step
+def _adam_to_flax(adam) -> Dict[str, Any]:
+    """The inverse of ``_adam_from_flax``.  Every parameter's Adam step
     must be the same (optax keeps one count)."""
-    adam = state["adam"]
     steps = {int(np.asarray(v.cpu() if torch.is_tensor(v) else v))
              for v in adam["step"].values()}
     if len(steps) != 1:
         raise ValueError(f"per-parameter Adam steps differ: {sorted(steps)}")
     count = np.asarray(steps.pop(), np.int32)
     b1, b2 = adam["betas"]
-    f32 = lambda x: np.asarray(x, np.float32)   # noqa: E731
-    comp = lambda c: {k: f32(c[k].cpu() if torch.is_tensor(c[k])  # noqa: E731
-                             else c[k]) for k in ("x_mean", "x_max")}
+    return {
+        "count": count,
+        "hyperparams": {"b1": _f32(b1), "b2": _f32(b2),
+                        "eps": _f32(adam["eps"]), "eps_root": _f32(0.0),
+                        "learning_rate": _f32(adam["lr"])},
+        "inner_state": [{"count": count.copy(),
+                         "mu": params_to_flax(adam["exp_avg"]),
+                         "nu": params_to_flax(adam["exp_avg_sq"])},
+                        None],
+    }
+
+
+def _f32(x):
+    return np.asarray(x.cpu() if torch.is_tensor(x) else x, np.float32)
+
+
+def ppo_state_from_flax(raw) -> Dict[str, Any]:
+    """A JAX ``PPOState`` (drl_tetris_tpu/algos/ppo.py:150) as restored by
+    ``restore_raw`` (nested dicts of numpy arrays) -> the port's learner
+    state as numpy trees: ``params`` (the PPONet state_dict), ``adam``
+    (``_adam_from_flax``), ``adv_comp``/``vloss_comp``, ``update_count``,
+    and, when the state has a reference net (trainer-computed targets),
+    ``ref_params`` and ``ref_countdown``."""
+    params = _numpy_tree(params_from_flax(raw["params"]))
+    out = {
+        "params": params,
+        "adam": _adam_from_flax(raw["opt_state"], params),
+        "adv_comp": {k: np.asarray(raw["adv_comp"][k], np.float32)
+                     for k in ("x_mean", "x_max")},
+        "vloss_comp": {k: np.asarray(raw["vloss_comp"][k], np.float32)
+                       for k in ("x_mean", "x_max")},
+        "update_count": int(np.asarray(raw["update_count"])),
+    }
+    if raw.get("ref_params") is not None:
+        out["ref_params"] = _numpy_tree(params_from_flax(raw["ref_params"]))
+        out["ref_countdown"] = int(np.asarray(raw["ref_countdown"]))
+    return out
+
+
+def ppo_state_to_flax(state) -> Dict[str, Any]:
+    """The port's learner state (``ppo_state_from_flax``'s form, tensors
+    or arrays) -> a JAX ``PPOState`` tree of numpy arrays, in the layout
+    ``restore_raw`` gives for one saved by the JAX package's
+    ``inject_hyperparams(adam)`` trainer."""
+    def comp(c):
+        return {k: _f32(c[k]) for k in ("x_mean", "x_max")}
+    ref = state.get("ref_params")
     return {
         "params": params_to_flax(state["params"]),
-        "opt_state": {
-            "count": count,
-            "hyperparams": {"b1": f32(b1), "b2": f32(b2),
-                            "eps": f32(adam["eps"]), "eps_root": f32(0.0),
-                            "learning_rate": f32(adam["lr"])},
-            "inner_state": [{"count": count.copy(),
-                             "mu": params_to_flax(adam["exp_avg"]),
-                             "nu": params_to_flax(adam["exp_avg_sq"])},
-                            None],
-        },
+        "opt_state": _adam_to_flax(state["adam"]),
         "adv_comp": comp(state["adv_comp"]),
         "vloss_comp": comp(state["vloss_comp"]),
         "update_count": np.asarray(int(state["update_count"]), np.int32),
-        "ref_params": None,
-        "ref_countdown": None,
+        "ref_params": None if ref is None else params_to_flax(ref),
+        "ref_countdown": None if ref is None else np.asarray(
+            int(state["ref_countdown"]), np.int32),
+    }
+
+
+def dqn_state_from_flax(raw) -> Dict[str, Any]:
+    """A JAX ``DQNState`` (drl_tetris_tpu/algos/dqn.py:54) as restored by
+    ``restore_raw`` -> the port's DQN learner state as numpy trees:
+    ``params`` and ``ref_params`` (QNet state_dicts), ``adam``,
+    ``update_count``."""
+    params = _numpy_tree(params_from_flax(raw["params"]))
+    return {
+        "params": params,
+        "ref_params": _numpy_tree(params_from_flax(raw["ref_params"])),
+        "adam": _adam_from_flax(raw["opt_state"], params),
+        "update_count": int(np.asarray(raw["update_count"])),
+    }
+
+
+def dqn_state_to_flax(state) -> Dict[str, Any]:
+    """The inverse of ``dqn_state_from_flax``."""
+    return {
+        "params": params_to_flax(state["params"]),
+        "ref_params": params_to_flax(state["ref_params"]),
+        "opt_state": _adam_to_flax(state["adam"]),
+        "update_count": np.asarray(int(state["update_count"]), np.int32),
     }
 
 

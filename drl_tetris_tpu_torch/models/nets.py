@@ -1,5 +1,6 @@
 """PPONet ('silver' SventonNet trunk, keyboard-conv policy head, per-piece
-tanh values) as PyTorch modules.
+tanh values) and QNet (the same trunk with the dueling Q head) as PyTorch
+modules.
 
 Counterpart of ``drl_tetris_tpu/models/nets.py`` (reference: build_blocks.py,
 sventon_architectures.py, network_utils.py of the TF1 original).  Public
@@ -13,8 +14,8 @@ run in bfloat16 with float32 parameters cast at each conv, as flax does
 (``promote_dtype``: input, kernel and bias in bf16, bias added after the
 conv), and the heads run in float32.  The cast is explicit; no autocast.
 
-Only the 'silver' architecture is ported; 'vanilla', 'keyboard', 'dreamer'
-and the DQN head wait for a later slice.
+Only the 'silver' architecture is ported; 'vanilla', 'keyboard' and
+'dreamer' wait for a later slice.
 """
 from __future__ import annotations
 
@@ -140,6 +141,40 @@ def action_softmax(x: torch.Tensor) -> torch.Tensor:
     m = torch.amax(x, dim=(1, 2), keepdim=True)
     e = torch.exp(x - m)
     return e / torch.sum(e, dim=(1, 2), keepdim=True)
+
+
+def normalize_advantages(a: torch.Tensor, piece_mask=None,
+                         mode: str = "mean",
+                         separate_piece_values: bool = True,
+                         activation=None) -> torch.Tensor:
+    """Dueling normalization over the action plane (network_utils.py:8-35);
+    a is (B, R, T, P), piece_mask (P,) or None."""
+    n_used = 7.0 if piece_mask is None else piece_mask.sum()
+    mask = 1.0 if piece_mask is None else piece_mask.reshape(1, 1, 1, -1)
+    if mode == "max":
+        all_min = torch.amin(a, dim=(1, 2, 3), keepdim=True)
+        am = mask * a + (1.0 - mask) * all_min
+        mx = torch.amax(am, dim=(1, 2), keepdim=True)
+        if not separate_piece_values:
+            mx = torch.sum(mx * mask, dim=3, keepdim=True) / n_used
+        a = a - mx
+    elif mode == "mean":
+        mean = torch.mean(a, dim=(1, 2), keepdim=True)
+        mean = torch.sum(mean * mask, dim=3, keepdim=True) / n_used
+        a = a - mean
+    if activation is not None:
+        a = activation(a)
+    return a
+
+
+def q_to_v(q: torch.Tensor, piece_mask=None) -> torch.Tensor:
+    """network_utils.py:95-98: the piece-mean of each piece's best Q,
+    (B, 1)."""
+    n_used = 7.0 if piece_mask is None else piece_mask.sum()
+    mask = 1.0 if piece_mask is None else piece_mask.reshape(1, 1, 1, -1)
+    qp = torch.amax(q, dim=(1, 2), keepdim=True)
+    v = torch.sum(qp * mask, dim=3, keepdim=True) / n_used
+    return v.reshape(-1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -345,9 +380,21 @@ class PPONet(nn.Module):
     def __init__(self, cfg: ModelConfig, board=(22, 10),
                  full_network: bool = True, device=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.board = cfg, tuple(board)
+        self.full_network = full_network
         self.trunk = SventonNet(cfg, board, full_network)
         self.to(resolve_device(device))
+
+    def worker_view(self) -> "PPONet":
+        """The worker-side net (``full_network=False``) holding this net's
+        trunk modules: the same parameter tensors, no value tower.  The
+        JAX package applies the full param dict to its partial net; the
+        view needs no copy."""
+        view = type(self)(self.cfg, self.board, full_network=False,
+                          device=next(self.parameters()).device)
+        for name in ("vis_tower", "join_tower", "adv_tower", "kbd"):
+            setattr(view.trunk, name, getattr(self.trunk, name))
+        return view
 
     def init_flax_(self, generator: torch.Generator) -> "PPONet":
         """Fresh weights with flax's initialisers, drawn from
@@ -368,3 +415,28 @@ class PPONet(nn.Module):
     def forward(self, vec, vis):
         raw_v, raw_a = self.trunk(vec, vis)
         return action_softmax(raw_a), raw_v.reshape(raw_v.shape[0], -1)
+
+
+class QNet(PPONet):
+    """prio_qnet's network function, dueling Q (qva_from_raw_streams,
+    network_utils.py:100-104) on the same trunk: A = tanh of the
+    mean-normalised keyboard head, Q = raw V + A (B, R, W, P), V =
+    ``q_to_v(Q)`` (B, 1).  Returns (Q, V, A).  The parameters and their
+    names are PPONet's, so ``init_flax_``, ``load_params_`` and the flax
+    converter serve both."""
+
+    def __init__(self, cfg: ModelConfig, board=(22, 10),
+                 full_network: bool = True, device=None,
+                 advantage_mode: str = "mean"):
+        super().__init__(cfg, board, full_network, device)
+        self.advantage_mode = advantage_mode
+
+    def forward(self, vec, vis):
+        raw_v, raw_a = self.trunk(vec, vis)
+        mask = self.trunk.piece_mask
+        a = normalize_advantages(
+            raw_a, piece_mask=mask, mode=self.advantage_mode,
+            separate_piece_values=self.cfg.separate_piece_values,
+            activation=torch.tanh)
+        q = raw_v + a
+        return q, q_to_v(q, piece_mask=mask), a

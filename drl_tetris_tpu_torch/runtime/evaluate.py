@@ -11,13 +11,15 @@ so ``argmax`` agents play the same games as there: the games reset from
 acting player's action is taken; the winner is read once after each
 chunk of 8 ticks and recorded only for newly finished games; each
 pairing's seed is ``seed + 97 * p0 + p1``.  Each tick's env step is one
-launch of the engine kernel's one-tick entry on the card.  ``pi`` agents
-sample with a ``torch.Generator`` seeded with ``seed + 1``, so their games
-match JAX's only in distribution.
+launch of the engine kernel's one-tick entry on the card.  ``pi`` and
+pareto agents sample with a ``torch.Generator`` seeded with ``seed + 1``,
+so their games match JAX's only in distribution; epsilon-greedy agents
+follow JAX's key chain (``PRNGKey(seed + 1)``, one split per chunk of 8
+ticks, one per tick, one per seat), so their games are JAX's.
 
-Only action-head agents (``kind="macro"``) are ported: the world-model
-and Sherlock kinds wait for the placement masks and their agents (ROADMAP
-11, 13), and rendering waits for ROADMAP 15.
+Action-head agents (``kind="macro"``: PPONet and QNet) are ported: the
+world-model and Sherlock kinds wait for the placement masks and their
+agents (ROADMAP 11, 13), and rendering waits for ROADMAP 15.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from drl_tetris_tpu_torch.algos.rollout import make_policy_fn
+from drl_tetris_tpu_torch.algos.rollout import (EPSILON_DISTRIBUTIONS,
+                                                make_policy_fn)
+from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
 from drl_tetris_tpu_torch.utils.scoreboard import Scoreboard
 
@@ -37,14 +41,15 @@ CHUNK = 8    # ticks between winner reads (evaluate.py:172-186)
 
 @dataclasses.dataclass
 class EvalAgent:
-    """An entrant: ``net`` is a PPONet holding the agent's weights (on the
-    device the matches run on)."""
+    """An entrant: ``net`` is a PPONet or QNet holding the agent's weights
+    (on the device the matches run on)."""
     name: str
     net: torch.nn.Module
     distribution: str = "argmax"   # eval_distribution (presets.py:128)
     # "macro": action-head nets emitting the (r, t) macro; the JAX
     # package's "world_model*" and "sherlock*" kinds are not ported
     kind: str = "macro"
+    epsilon: float = 0.05          # for the epsilon distributions
 
 
 def _check_agent(agent: EvalAgent):
@@ -65,17 +70,27 @@ def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
         _check_agent(a)
     dev = next(agents[0].net.parameters()).device
     env = TetrisVectorEnv(env_cfg, n_games, device=dev)
-    policies = [make_policy_fn(env, a.net, a.distribution) for a in agents]
+    policies = [make_policy_fn(env, a.net, a.distribution,
+                               epsilon=a.epsilon) for a in agents]
     st = env.reset(seed)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    keyed = any(a.distribution in EPSILON_DISTRIBUTIONS for a in agents)
+    key = rng.prng_key(seed + 1, dev)
+    seat_keys = (None, None)
     finished = np.zeros(n_games, bool)
     winner = np.full(n_games, -1)
     with torch.no_grad():
         for _ in range(0, max_ticks, CHUNK):
             done_any = torch.zeros(n_games, dtype=torch.bool, device=dev)
-            for _ in range(CHUNK):
+            if keyed:
+                key, k = rng.split(key)
+                tick_keys = rng.split(k, CHUNK)
+            for i in range(CHUNK):
+                if keyed:
+                    seat_keys = rng.split(tick_keys[i])
                 (_, _, r0, t0, *_), (_, _, r1, t1, *_) = [
-                    p(st, generator) for p in policies]
+                    p(st, generator, key=k)
+                    for p, k in zip(policies, seat_keys)]
                 mine = st.current_player == 0
                 st, _, done = env.step(st, torch.where(mine, r0, r1),
                                        torch.where(mine, t0, t1))

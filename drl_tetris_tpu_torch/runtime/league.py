@@ -19,6 +19,17 @@ from drl_tetris_tpu_torch.runtime.evaluate import EvalAgent, round_robin
 from drl_tetris_tpu_torch.utils.elo import LeagueHistory
 
 
+def random_anchor(net: torch.nn.Module, seed: int = 0xE10
+                  ) -> torch.nn.Module:
+    """The league's random anchor for a run of ``net``: a full net of its
+    class (PPONet or QNet), model and board, on its device, with fresh
+    flax-distributed weights from ``torch.Generator().manual_seed(seed)``
+    (the JAX package inits its anchor from ``PRNGKey(0xE10)``)."""
+    dev = next(net.parameters()).device
+    rnd = type(net)(net.cfg, net.board, full_network=True, device=dev)
+    return rnd.init_flax_(torch.Generator().manual_seed(seed))
+
+
 class TrainingLeague:
     """Maintains a rolling opponent pool and an Elo history.
 

@@ -1,11 +1,14 @@
-"""Standalone single-process self-play training (SVENton-PPO, one card).
+"""Standalone single-process self-play training (SVENton-PPO and
+SVENton-DQN, one card).
 
 Counterpart of ``drl_tetris_tpu/runtime/standalone.py`` (``StandaloneConfig``,
-``StandaloneTrainer``; the reference's run_standalone mode, presets.py:157,
-sventon_agent.py:42-47, 140-144): worker and trainer in one process, one
-module for both, so the worker's weights are the learner's.  An iteration
-is the rollout segment (one launch of the engine kernel's one-tick entry
-per tick), GAE, and the PPO update with ``torch.optim.Adam``; the stats
+``StandaloneTrainer``, ``StandaloneDQNConfig``, ``StandaloneDQNTrainer``;
+the reference's run_standalone mode, presets.py:157, sventon_agent.py:42-47,
+140-144): worker and trainer in one process, one module for both, so the
+worker's weights are the learner's.  A PPO iteration is the rollout
+segment (one launch of the engine kernel's one-tick entry per tick), the
+optional reward shaper, GAE (or the k-step windows when the trainer
+computes targets), and the PPO update with ``torch.optim.Adam``; the stats
 come back to the host in one transfer at its end.
 
 The key chain is the JAX package's, through the port's threefry
@@ -25,28 +28,132 @@ net, Adam's moments, steps and lr, the compressors, ``update_count``,
 ``--init-from`` (drl_tetris_tpu/cli/main.py:315-362).  The env state is
 not saved: a resumed run resets its games, as the JAX package's does.
 
-League-pool opponents and reward shapers wait for a later slice (ROADMAP
-item 9).
+League-pool opponents (``pool_prob > 0``): with that probability an
+iteration plays a frozen past snapshot instead of itself, the learner on
+alternating seats, and trains on its own ticks only; snapshots join the
+pool every ``pool_every`` iterations or through ``seed_pool`` (the CLI's
+``--pool-seed``).  Opponents are drawn uniformly or by PFSP weights
+w(1-w) (floor 0.02) from each entry's win-rate EMA, with
+``np.random.RandomState(seed + 7)`` as in JAX, so the opponent sequence is
+JAX's.
+
+The DQN trainer acts with epsilon-greedy or pareto sampling into the
+on-device prioritized replay, and updates once the replay holds
+``n_samples_each_update`` rows: the sample follows JAX's key, the targets
+go through the reference net, then IS-weighted Q steps with Adam.  Its
+rollout key chain is JAX's (``key, kroll, kupd = split(key, 3)``): the
+epsilon draws follow ``kroll`` exactly, pareto's gumbel noise comes from
+the generator or is given.  The replay is not saved: a resumed run starts
+it empty, as the JAX CLI's does.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from drl_tetris_tpu_torch import resolve_device
+from drl_tetris_tpu_torch.algos.dqn import DQNConfig, make_dqn_update
 from drl_tetris_tpu_torch.algos.ppo import (CompressorState, PPOConfig,
-                                            make_ppo_update,
+                                            frozen_copy, make_ppo_update,
+                                            pool_segment_to_batch,
                                             segment_to_batch,
+                                            segment_to_windows,
                                             set_learning_rate)
-from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn
+from drl_tetris_tpu_torch.algos.replay import (ReplayConfig,
+                                               replay_add_segment,
+                                               replay_init)
+from drl_tetris_tpu_torch.algos.rollout import (HParams,
+                                                make_pool_rollout_fn,
+                                                make_rollout_fn)
 from drl_tetris_tpu_torch.config.parameter import param_eval
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
-from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
+from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet, QNet
 from drl_tetris_tpu_torch.utils.metrics import fetch_stats
+
+
+def _traj_len_ema(done_tn: torch.Tensor, ep_len: torch.Tensor, atl,
+                  tau: float):
+    """Fold a segment's done flags into the average-trajectory-length EMA
+    (sherlock_agent.py:173: atl <- (1-tau) atl + tau len, one step per
+    finished round, in (tick, env) order; ep_len carries partial lengths
+    across segments).  On the device with no host sync: each round's
+    length from a running max of the done ticks, and the K folds in closed
+    form, atl (1-tau)^K + sum_k tau (1-tau)^(K-k) len_k, in float64.
+    Returns (ep_len' (N,) int32, atl' () float32)."""
+    d = done_tn.to(torch.bool)
+    T, N = d.shape
+    dev = d.device
+    ticks = torch.arange(1, T + 1, device=dev)[:, None]      # t + 1
+    mark = torch.where(d, ticks, 0)
+    # (t + 1) of the last done strictly before tick t, 0 if none
+    prev = torch.cummax(torch.cat([torch.zeros_like(mark[:1]), mark[:-1]]),
+                        dim=0).values
+    length = ticks - prev + torch.where(prev == 0, ep_len.to(torch.int64),
+                                        0)
+    new_ep_len = torch.where(d[-1], 0, length[-1]).to(torch.int32)
+    flat = d.reshape(-1)
+    k = torch.cumsum(flat.to(torch.int64), 0)                # 1-based
+    K = k[-1]
+    decay = torch.tensor(1.0 - tau, dtype=torch.float64, device=dev)
+    w = torch.where(flat, tau * decay ** (K - k).to(torch.float64), 0.0)
+    atl = torch.as_tensor(atl, dtype=torch.float64, device=dev)
+    out = atl * decay ** K.to(torch.float64) + torch.sum(
+        w * length.reshape(-1).to(torch.float64))
+    return new_ep_len, out.to(torch.float32)
+
+
+def _traj_len_ema_host(done_tn, ep_len, atl, tau):
+    """The same fold as a host double loop (the JAX package's host form),
+    for holding the device form against it."""
+    d = np.asarray(done_tn)
+    ep_len = np.asarray(ep_len).copy()
+    for t in range(d.shape[0]):
+        ep_len += 1
+        fin = np.flatnonzero(d[t])
+        for length in ep_len[fin]:
+            atl = (1.0 - tau) * atl + tau * float(length)
+        ep_len[fin] = 0
+    return ep_len, atl
+
+
+def adam_state_dict(net: torch.nn.Module, opt: torch.optim.Adam) -> dict:
+    """Adam's state under the net's parameter names: ``lr``, ``betas``,
+    ``eps`` and per parameter ``step``, ``exp_avg``, ``exp_avg_sq`` (zeros
+    at step 0 before the first step).  The tensors are the live ones."""
+    group = opt.param_groups[0]
+    adam = {"lr": float(group["lr"]),
+            "betas": tuple(float(b) for b in group["betas"]),
+            "eps": float(group["eps"]),
+            "step": {}, "exp_avg": {}, "exp_avg_sq": {}}
+    for name, p in net.named_parameters():
+        st = opt.state.get(p)
+        adam["step"][name] = st["step"] if st else torch.zeros(())
+        for k in ("exp_avg", "exp_avg_sq"):
+            adam[k][name] = st[k] if st else torch.zeros_like(p)
+    return adam
+
+
+def load_adam_state(net: torch.nn.Module, opt: torch.optim.Adam,
+                    adam: dict):
+    """Set Adam's state from ``adam_state_dict``'s form (tensors or numpy
+    arrays, on any device)."""
+    for group in opt.param_groups:
+        group["lr"] = float(adam["lr"])
+        group["betas"] = tuple(float(b) for b in adam["betas"])
+        group["eps"] = float(adam["eps"])
+    for name, p in net.named_parameters():
+        # torch keeps Adam's step as a float32 host tensor
+        opt.state[p] = {
+            "step": torch.as_tensor(adam["step"][name]).to(
+                "cpu", torch.float32).clone(),
+            **{k: torch.as_tensor(adam[k][name]).to(p.device, p.dtype).clone()
+               for k in ("exp_avg", "exp_avg_sq")}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +167,18 @@ class StandaloneConfig:
     # value_lr as a Parameter(t) schedule, re-evaluated at the env-steps
     # trained so far before each iteration; None keeps ppo.lr
     lr_schedule: Any = None
-    pool_prob: float = 0.0        # league-pool opponents: not ported yet
-    reward_shaper: Any = None     # not ported yet
+    # league-pool opponents: with probability pool_prob an iteration plays
+    # a frozen past snapshot; a snapshot joins every pool_every iterations
+    # (0 = never); "uniform" or "pfsp" (w(1-w) weights from each entry's
+    # learner win-rate EMA, step pool_wr_lr per pool iteration)
+    pool_prob: float = 0.0
+    pool_size: int = 4
+    pool_every: int = 0
+    pool_mode: str = "uniform"
+    pool_wr_lr: float = 0.05
+    # shape(rewards, dones) applied to segments before GAE
+    # (algos/reward_shapers.make_shaper; trajectory.py:59)
+    reward_shaper: Any = None
 
 
 class _PhaseClock:
@@ -91,12 +208,12 @@ class _PhaseClock:
 
 class StandaloneTrainer:
     def __init__(self, cfg: StandaloneConfig, device=None):
-        if cfg.pool_prob > 0:
-            raise NotImplementedError(
-                "league-pool opponents wait for a later slice (ROADMAP 9)")
-        if cfg.reward_shaper is not None:
-            raise NotImplementedError(
-                "reward shapers wait for a later slice (ROADMAP 9)")
+        wca = cfg.ppo.workers_computes_advantages
+        if cfg.pool_prob > 0 and not wca:
+            raise ValueError("pool training uses worker-side GAE "
+                             "(workers_computes_advantages=True)")
+        if cfg.pool_mode not in ("uniform", "pfsp"):
+            raise ValueError(f"pool_mode {cfg.pool_mode!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         e = cfg.env.engine
@@ -104,10 +221,24 @@ class StandaloneTrainer:
         self.net = PPONet(cfg.model, board=(e.height, e.width),
                           full_network=True, device=self.device)
         self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
-        self.rollout = make_rollout_fn(self.env, self.net, cfg.horizon)
+        # workers run the value-stream-free net when the trainer computes
+        # targets (ppo_nets.py:28): the value tower is skipped on every
+        # rollout tick; the view shares the net's trunk tensors
+        self.worker_net = self.net if wca else self.net.worker_view()
+        self.rollout = make_rollout_fn(self.env, self.worker_net, cfg.horizon)
         self.init_opt, self.update = make_ppo_update(e, self.net, cfg.ppo)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+
+        # league-pool opponents: frozen nets and their learner win-rate
+        # EMAs, in lockstep (deque eviction keeps them aligned)
+        self._pool = collections.deque(maxlen=cfg.pool_size)
+        self._pool_wr = collections.deque(maxlen=cfg.pool_size)
+        self._iter = 0
+        if cfg.pool_prob > 0:
+            self._host_rng = np.random.RandomState(cfg.seed + 7)
+            self.pool_rollout = make_pool_rollout_fn(
+                self.env, self.worker_net, cfg.horizon)
 
         key = rng.prng_key(cfg.seed, self.device)
         self.key, _kinit, kenv = rng.split(key, 3)
@@ -120,44 +251,27 @@ class StandaloneTrainer:
     def ppo_state_dict(self) -> dict:
         """The learner's state as a nested dict of tensors under the net's
         parameter names (the form of ``models/convert.ppo_state_from_flax``):
-        ``params``; ``adam`` (``lr``, ``betas``, ``eps`` and per parameter
-        ``step``, ``exp_avg``, ``exp_avg_sq``; zeros at step 0 before the
-        first update); ``adv_comp``, ``vloss_comp``; ``update_count``.
-        The tensors are the live ones, not copies."""
-        opt = self.state.optimizer
-        group = opt.param_groups[0]
-        adam = {"lr": float(group["lr"]),
-                "betas": tuple(float(b) for b in group["betas"]),
-                "eps": float(group["eps"]),
-                "step": {}, "exp_avg": {}, "exp_avg_sq": {}}
-        for name, p in self.net.named_parameters():
-            st = opt.state.get(p)
-            adam["step"][name] = st["step"] if st else torch.zeros(())
-            for k in ("exp_avg", "exp_avg_sq"):
-                adam[k][name] = st[k] if st else torch.zeros_like(p)
-        return {"params": self.net.state_dict(), "adam": adam,
-                "adv_comp": self.state.adv_comp._asdict(),
-                "vloss_comp": self.state.vloss_comp._asdict(),
-                "update_count": int(self.state.update_count)}
+        ``params``; ``adam`` (``adam_state_dict``); ``adv_comp``,
+        ``vloss_comp``; ``update_count``; with trainer-computed targets
+        also ``ref_params`` and ``ref_countdown``.  The tensors are the live
+        ones, not copies."""
+        st = self.state
+        out = {"params": self.net.state_dict(),
+               "adam": adam_state_dict(self.net, st.optimizer),
+               "adv_comp": st.adv_comp._asdict(),
+               "vloss_comp": st.vloss_comp._asdict(),
+               "update_count": int(st.update_count)}
+        if st.ref_net is not None:
+            out["ref_params"] = st.ref_net.state_dict()
+            out["ref_countdown"] = int(st.ref_countdown)
+        return out
 
     def load_ppo_state(self, sd: dict):
         """Set the learner's state from ``ppo_state_dict``'s form (tensors
         or numpy arrays, on any device)."""
         dev = self.device
         self.net.load_params_(sd["params"])
-        opt = self.state.optimizer
-        adam = sd["adam"]
-        for group in opt.param_groups:
-            group["lr"] = float(adam["lr"])
-            group["betas"] = tuple(float(b) for b in adam["betas"])
-            group["eps"] = float(adam["eps"])
-        for name, p in self.net.named_parameters():
-            # torch keeps Adam's step as a float32 host tensor
-            opt.state[p] = {
-                "step": torch.as_tensor(adam["step"][name]).to(
-                    "cpu", torch.float32).clone(),
-                **{k: torch.as_tensor(adam[k][name]).to(dev, p.dtype).clone()
-                   for k in ("exp_avg", "exp_avg_sq")}}
+        load_adam_state(self.net, self.state.optimizer, sd["adam"])
 
         def comp(c):
             return CompressorState(*[torch.as_tensor(c[k]).to(
@@ -165,6 +279,12 @@ class StandaloneTrainer:
         self.state.adv_comp = comp(sd["adv_comp"])
         self.state.vloss_comp = comp(sd["vloss_comp"])
         self.state.update_count = int(sd["update_count"])
+        if self.state.ref_net is not None:
+            if sd.get("ref_params") is None:
+                raise ValueError("the state has no reference net, and this "
+                                 "trainer computes targets through one")
+            self.state.ref_net.load_params_(sd["ref_params"])
+            self.state.ref_countdown = int(sd["ref_countdown"])
 
     def state_dict(self) -> dict:
         """``ppo_state_dict`` plus ``total_steps`` and the key."""
@@ -182,7 +302,7 @@ class StandaloneTrainer:
         the learner's state from ``state`` (a checkpoint of this run, or a
         converted JAX ``PPOState``), ``total_steps = step``, and the key
         chain moved past the first segment with ``fold_in(key, step)``.
-        The games keep their fresh reset."""
+        The games keep their fresh reset; the pool starts empty."""
         self.load_ppo_state(state)
         self.total_steps = int(step)
         self.key = rng.fold_in(self.key, int(step))
@@ -192,29 +312,90 @@ class StandaloneTrainer:
         weights into this trainer; Adam and the compressors stay fresh."""
         self.net.load_params_(params)
 
+    def _snapshot(self) -> torch.nn.Module:
+        return frozen_copy(self.net).eval()
+
+    def seed_pool(self, params: dict) -> None:
+        """Add a frozen opponent with ``params`` (a checkpoint's net
+        weights) to the pool: the CLI's ``--pool-seed``."""
+        snap = self._snapshot()
+        snap.load_params_(params)
+        self._pool.append(snap)
+        self._pool_wr.append(0.5)
+
+    def _pick_opponent(self) -> int:
+        """A uniform draw, or PFSP weights w(1-w) with a floor of 0.02:
+        even matches carry the most signal, and the floor keeps every
+        entry in play."""
+        if self.cfg.pool_mode != "pfsp" or len(self._pool) == 1:
+            return int(self._host_rng.randint(len(self._pool)))
+        wr = np.asarray(self._pool_wr, np.float64)
+        wgt = np.maximum(wr * (1.0 - wr), 0.02)
+        return int(self._host_rng.choice(len(self._pool), p=wgt / wgt.sum()))
+
     def train_iteration(self, gumbel: Optional[torch.Tensor] = None):
-        """One worker segment and one PPO update (trainer.py:71-75);
-        ``gumbel`` ((horizon, n_envs, 4 * width)) replaces the rollout's
-        sampling noise.  Returns the stats as host floats; ``phase_ms``
-        then holds the rollout, GAE and update times in ms."""
+        """One worker segment and one PPO update (trainer.py:71-75),
+        against a pool opponent with probability ``pool_prob``; ``gumbel``
+        ((horizon, n_envs, 4 * width)) replaces the rollout's sampling
+        noise.  Returns the stats as host floats; ``phase_ms`` then holds
+        the rollout, batch (GAE or windows) and update times in ms."""
         cfg = self.cfg
         if cfg.lr_schedule is not None:
             set_learning_rate(self.state,
                               param_eval(cfg.lr_schedule, self.total_steps))
         self.key, kstep = rng.split(self.key)
+        use_pool = (len(self._pool) > 0
+                    and self._host_rng.rand() < cfg.pool_prob)
         _kroll, kupd = rng.split(kstep)
         clock = _PhaseClock(self.device)
         clock.mark("start")
-        self.env_state, seg, v_last = self.rollout(
-            self.env_state, self.generator, gumbel)
+        if use_pool:
+            idx = self._pick_opponent()
+            learner_first = self._iter % 2 == 0
+            self.env_state, seg, v_last = self.pool_rollout(
+                self._pool[idx], self.env_state, self.generator, gumbel,
+                learner_first=learner_first)
+        else:
+            self.env_state, seg, v_last = self.rollout(
+                self.env_state, self.generator, gumbel)
         clock.mark("rollout")
-        batch, gae_stats = segment_to_batch(cfg.ppo, seg, v_last)
+        if cfg.reward_shaper is not None:
+            seg = seg._replace(reward=cfg.reward_shaper(seg.reward, seg.done))
+        if use_pool:
+            lp = 0 if learner_first else 1
+            batch, batch_stats = pool_segment_to_batch(cfg.ppo, seg, v_last,
+                                                       learner_parity=lp)
+            # the learner's outcomes against this opponent: at a done tick
+            # the acting player's reward is +-1 zero-sum, so the learner's
+            # is the reward on its parity and the negation elsewhere
+            parity = (torch.arange(seg.done.shape[0],
+                                   device=self.device) % 2)[:, None]
+            lrew = torch.where(parity == lp, seg.reward, -seg.reward)
+            batch_stats["pool/wins"] = (seg.done & (lrew > 0)).sum()
+            batch_stats["pool/losses"] = (seg.done & (lrew < 0)).sum()
+        elif cfg.ppo.workers_computes_advantages:
+            batch, batch_stats = segment_to_batch(cfg.ppo, seg, v_last)
+        else:
+            batch, batch_stats = segment_to_windows(cfg.ppo, seg), {}
         clock.mark("gae")
         self.state, stats = self.update(self.state, batch, kupd)
         clock.mark("update")
-        stats.update(gae_stats)
+        stats.update(batch_stats)
+        stats = fetch_stats(stats)                # the iteration's one sync
+        if use_pool:
+            # fold this segment's finished rounds into the opponent's
+            # win-rate EMA
+            w, lost = stats.pop("pool/wins"), stats.pop("pool/losses")
+            if w + lost > 0:
+                self._pool_wr[idx] = ((1 - cfg.pool_wr_lr) * self._pool_wr[idx]
+                                      + cfg.pool_wr_lr * w / (w + lost))
+            stats["pool/opponent_winrate_ema"] = self._pool_wr[idx]
+        self._iter += 1
+        if cfg.pool_every and self._iter % cfg.pool_every == 0:
+            self._pool.append(self._snapshot())
+            self._pool_wr.append(0.5)
         self.total_steps += cfg.n_envs * cfg.horizon
-        self.stats = fetch_stats(stats)           # the iteration's one sync
+        self.stats = stats
         self.phase_ms = clock.spans_ms()
         return self.stats
 
@@ -229,4 +410,137 @@ class StandaloneTrainer:
                        f"loss={stats['losses/total_loss']:.4f}  "
                        f"entropy={stats['entropy/entropy']:.3f}  "
                        f"clip_sat={stats['misc/clip_saturation']:.3f}")
+        return self.stats
+
+
+@dataclasses.dataclass(frozen=True)
+class StandaloneDQNConfig:
+    env: EnvConfig = EnvConfig()
+    model: ModelConfig = ModelConfig()
+    dqn: DQNConfig = DQNConfig()
+    replay: ReplayConfig = ReplayConfig()
+    n_envs: int = 80              # legacy DQN shape (sventon_base.py:80)
+    horizon: int = 32
+    train_distribution: str = "epsilon"   # presets.py:80
+    epsilon: Any = 0.05           # ParamLike: evaluated per iteration
+    action_temperature: Any = 1.0
+    tau_learning_rate: float = 0.01
+    seed: int = 0
+
+
+class StandaloneDQNTrainer:
+    """SVENton-DQN in one process: epsilon-greedy (or pareto) rollouts into
+    the on-device prioritized replay, k-step lambda targets through the
+    reference net, IS-weighted Q updates (sventon_agent_dqn_trainer.py).
+    Initial weights: flax's initialisers from a ``torch.Generator`` seeded
+    with ``seed``, as the PPO trainer's."""
+
+    def __init__(self, cfg: StandaloneDQNConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        e = cfg.env.engine
+        self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        self.net = QNet(cfg.model, board=(e.height, e.width),
+                        full_network=True, device=self.device)
+        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+        self.rollout = make_rollout_fn(
+            self.env, self.net, cfg.horizon,
+            distribution=cfg.train_distribution,
+            epsilon=param_eval(cfg.epsilon))
+        self.init_opt, self.update = make_dqn_update(e, self.net, cfg.dqn,
+                                                     cfg.replay)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
+        key = rng.prng_key(cfg.seed, self.device)
+        self.key, _kinit, kenv = rng.split(key, 3)
+        self.state = self.init_opt(self.net)
+        self.replay = replay_init(cfg.replay, self.device)
+        self.env_state = self.env.reset(kenv)
+        self.total_steps = 0
+        self.stats = {}
+        self.phase_ms = {}
+        self._ep_len = torch.zeros(cfg.n_envs, dtype=torch.int32,
+                                   device=self.device)
+        self.avg_traj_len = 12.0      # sherlock_agent.py:39 init
+
+    def _hparams(self) -> HParams:
+        t = self.total_steps
+        return HParams(epsilon=param_eval(self.cfg.epsilon, t),
+                       temperature=param_eval(self.cfg.action_temperature, t),
+                       avg_traj_len=self.avg_traj_len)
+
+    def dqn_state_dict(self) -> dict:
+        """The learner's state (the form of
+        ``models/convert.dqn_state_from_flax``): ``params``,
+        ``ref_params``, ``adam`` and ``update_count``; live tensors."""
+        st = self.state
+        return {"params": self.net.state_dict(),
+                "ref_params": st.ref_net.state_dict(),
+                "adam": adam_state_dict(self.net, st.optimizer),
+                "update_count": int(st.update_count)}
+
+    def load_dqn_state(self, sd: dict):
+        self.net.load_params_(sd["params"])
+        self.state.ref_net.load_params_(sd["ref_params"])
+        load_adam_state(self.net, self.state.optimizer, sd["adam"])
+        self.state.update_count = int(sd["update_count"])
+
+    def state_dict(self) -> dict:
+        """``dqn_state_dict`` plus ``total_steps`` and the key (not the
+        replay)."""
+        return {**self.dqn_state_dict(), "total_steps": int(self.total_steps),
+                "key": self.key}
+
+    def load_state_dict(self, sd: dict):
+        self.load_dqn_state(sd)
+        self.total_steps = int(sd["total_steps"])
+        self.key = torch.as_tensor(sd["key"]).to(self.device, torch.int64)
+
+    def resume(self, state: dict, step: int):
+        """``train --resume``: the learner's state, ``total_steps = step``,
+        ``fold_in(key, step)``; the games reset and the replay is empty."""
+        self.load_dqn_state(state)
+        self.total_steps = int(step)
+        self.key = rng.fold_in(self.key, int(step))
+
+    def init_params(self, params: dict):
+        """``train --init-from``: the weights into the net and the
+        reference net; Adam stays fresh."""
+        self.net.load_params_(params)
+        self.state.ref_net.load_params_(params)
+
+    def train_iteration(self, gumbel: Optional[torch.Tensor] = None,
+                        replay_gumbel: Optional[torch.Tensor] = None):
+        """One segment into the replay, then one update once the replay
+        holds ``n_samples_each_update`` rows.  ``gumbel`` replaces the
+        rollout's pareto or pi noise ((horizon, n_envs, 4 * width)),
+        ``replay_gumbel`` the sample's ((capacity,)).  Returns the latest
+        update's stats; ``phase_ms`` holds the rollout, replay add, targets
+        and update times in ms (the last two once an update ran)."""
+        cfg = self.cfg
+        self.key, kroll, kupd = rng.split(self.key, 3)
+        clock = _PhaseClock(self.device)
+        clock.mark("start")
+        self.env_state, seg, _ = self.rollout(
+            self.env_state, self.generator, gumbel, key=kroll,
+            hp=self._hparams())
+        clock.mark("rollout")
+        if cfg.train_distribution == "adaptive_epsilon":
+            self._ep_len, self.avg_traj_len = _traj_len_ema(
+                seg.done, self._ep_len, self.avg_traj_len,
+                cfg.tau_learning_rate)
+        replay_add_segment(cfg.replay, self.replay, seg, cfg.horizon)
+        clock.mark("replay_add")
+        self.total_steps += cfg.n_envs * cfg.horizon
+        # the trainer waits for enough samples
+        # (sventon_agent_dqn_trainer.py:22)
+        if self.replay.size >= cfg.dqn.n_samples_each_update:
+            t = self.total_steps
+            self.state, self.replay, stats = self.update(
+                self.state, self.replay, kupd,
+                param_eval(cfg.dqn.alpha, t), param_eval(cfg.dqn.beta, t),
+                replay_gumbel, clock.mark)
+            clock.mark("update")
+            self.stats = fetch_stats(stats)       # the update's one sync
+        self.phase_ms = clock.spans_ms()
         return self.stats

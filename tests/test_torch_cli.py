@@ -4,7 +4,8 @@ iterations with a league round, ``train --resume`` for one more (its
 league pool re-seeded from the saved snapshots),
 ``eval`` of the result against random, and ``print-config`` (also
 ``--diff``).  What is not ported exits with a message naming its ROADMAP
-item.
+item.  The DQN and league-pool paths of ``train`` and ``eval`` are in
+tests/test_torch_cli_dqn.py.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
@@ -116,12 +117,12 @@ def test_print_config(session):
     (["bench"], "ROADMAP 10"),
     (["up"], "ROADMAP 14"),
     (["train", "--distributed", "--device", "cpu"], "ROADMAP 14"),
-    (["train", "--pool-seed", "x", "--device", "cpu"], "ROADMAP 9"),
-    (["train", "--device", "cpu", "--set", "pool_prob=0.2"], "ROADMAP 9"),
-    (["train", "--device", "cpu", "--set", "reward_shaper=height"],
-     "ROADMAP 9"),
+    (["worker"], "ROADMAP 14"),
+    (["kv"], "ROADMAP 14"),
     (["train", "--device", "cpu", "--presets", "default", "sventon",
-      "sventon_dqn"], "ROADMAP 12"),
+      "experiment_sixten"], "ROADMAP 13"),
+    (["train", "--device", "cpu", "--presets", "default", "sherlock"],
+     "ROADMAP 13"),
     (["train", "--device", "cpu", "--set", "single_policy=false"],
      "ROADMAP 13"),
 ])

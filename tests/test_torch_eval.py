@@ -5,7 +5,9 @@ Elo and scoreboard (utils/) against the JAX package's.
   ``elo_history.jsonl`` lines equal the JAX copies' on the same results.
 * A round robin of two agents from seeded flax params (a small float32
   net, ``argmax``, 8 games per pair on a 12 x 8 board) gives the JAX
-  package's scoreboard game for game, and ``fit_elo`` within 1e-9.
+  package's scoreboard game for game, and ``fit_elo`` within 1e-9; so
+  does one of a QNet agent sampling epsilon-greedy (epsilon 0.2, JAX's
+  key chain) against an ``argmax`` PPONet, 4 games per pair.
 * The training league snapshots, plays the random anchor, its fixed
   anchors and its pool, and appends one refit per evaluation to ``elo_history.jsonl``.
 """
@@ -102,15 +104,16 @@ def test_league_history_lines(tmp_path):
                          for e in jh.curve()]
 
 
-def board_params(seed):
+def board_params(seed, kbd_scale=12.0):
     """Seeded flax params for the small float32 net on the H x W board,
-    the keyboard kernel scaled up so argmax is decided by the boards."""
+    the keyboard kernel scaled up (by ``kbd_scale``) so argmax is decided
+    by the boards."""
     net = jnets.PPONet(jnets.ModelConfig(compute_dtype="float32", **SMALL))
     p = net.init(jax.random.PRNGKey(0), [jnp.zeros((1, 12))] * 2,
                  [jnp.zeros((1, H, W, 1))] * 2)["params"]
     p = randomize(jax.tree.map(np.asarray, p), seed)
     kbd = p["SventonNet_0"]["KeyboardConv_0"]["Conv_0"]
-    kbd["kernel"] = kbd["kernel"] * 12.0
+    kbd["kernel"] = kbd["kernel"] * kbd_scale
     return p
 
 
@@ -146,6 +149,33 @@ def test_argmax_round_robin_matches_jax(monkeypatch):
     assert len(ticks) % evaluate.CHUNK == 0 and len(ticks) > 0
     fit, jfit = elo.fit_elo(got), jelo.fit_elo(ref)
     assert all(abs(fit[k] - jfit[k]) < 1e-9 for k in jfit)
+
+
+def test_epsilon_qnet_round_robin_matches_jax():
+    # the QNet's keyboard kernel unscaled: A = tanh(logits) would saturate
+    # at 1.0 in many cells, and argmax over float32 ties of tanh is not
+    # held across frameworks
+    params = [board_params(7, kbd_scale=1.0), board_params(8)]
+    model = dict(compute_dtype="float32", **SMALL)
+    jagents = [
+        jevaluate.EvalAgent(name="q", params={"params": params[0]},
+                            net=jnets.QNet(jnets.ModelConfig(**model)),
+                            distribution="epsilon", epsilon=0.2),
+        jevaluate.EvalAgent(name="p", params={"params": params[1]},
+                            net=jnets.PPONet(jnets.ModelConfig(**model)),
+                            distribution="argmax")]
+    q = nets.QNet(nets.ModelConfig(**model), board=(H, W), device="cpu")
+    q.load_state_dict(params_from_flax(params[0]))
+    agents = [evaluate.EvalAgent("q", q, distribution="epsilon",
+                                 epsilon=0.2),
+              evaluate.EvalAgent("p", port_net(params[1]))]
+    jenv = JEnvConfig(engine=JEngineConfig(height=H, width=W))
+    env = EnvConfig(engine=EngineConfig(height=H, width=W))
+    ref = jevaluate.round_robin(jenv, jagents, games_per_pair=4, seed=9)
+    got = evaluate.round_robin(env, agents, games_per_pair=4, seed=9)
+    assert dict(got.wins) == dict(ref.wins)
+    assert dict(got.games) == dict(ref.games)
+    assert sum(got.games.values()) == 8 and sum(got.wins.values()) > 0
 
 
 def test_unported_kinds_and_render_raise():

@@ -293,9 +293,17 @@ def test_loss_sees_exactly_the_flax_leaves():
 
 
 def test_workers_computes_advantages_false_is_not_ported():
+    """Trainer-computed targets are ported (tests/test_torch_ppo_modes.py);
+    what that mode does not take, as in the JAX package, is the mirror
+    augmentation, a worker-computes-advantages feature."""
     cfg = dataclasses.replace(ppo.PPOConfig(),
-                              workers_computes_advantages=False)
+                              workers_computes_advantages=False,
+                              augment_data=True)
     net = nets.PPONet(nets.ModelConfig(compute_dtype="float32", **SMALL),
                       device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         ppo.make_ppo_update(EngineConfig(), net, cfg)
+    init_fn, _ = ppo.make_ppo_update(
+        EngineConfig(), net, dataclasses.replace(cfg, augment_data=False))
+    state = init_fn()
+    assert state.ref_countdown == 0 and state.ref_net is not net

@@ -3,7 +3,8 @@
 against the JAX package's.
 
 * Every preset stack of the JAX experiments and recipes resolves to the
-  same env, model and PPO config, distributions, flavour and n_envs, and
+  same env, model, PPO, DQN and replay config, distributions, flavour and
+  n_envs, and
   the raw value_lr schedule evaluates the same at t = 0, 5M and 20M.
 * ``experiment_schedule`` gives the same run ids and configs.
 * ``settings.json`` is written byte for byte as the JAX package writes it,
@@ -49,7 +50,7 @@ SIDE_FILES = sorted(glob.glob(os.path.join(REPO, "data", "**",
 
 
 def assert_same_config(got, ref):
-    for part in ("env", "model", "ppo"):
+    for part in ("env", "model", "ppo", "dqn", "replay"):
         assert dataclasses.asdict(getattr(got, part)) == \
             dataclasses.asdict(getattr(ref, part)), part
     for f in ("flavour", "n_envs", "train_distribution", "eval_distribution",
@@ -118,7 +119,8 @@ def test_experiment_schedule_like_jax(only_last):
     assert [c.ppo.lr for c in sweep] == [1e-7, 1e-4, 1e-5]
 
 
-@pytest.mark.parametrize("stack", ("cli+r5_learning", "sixten"))
+@pytest.mark.parametrize("stack", ("cli+r5_learning", "sixten",
+                                   "sventon_dqn"))
 def test_settings_json_is_byte_identical(tmp_path, stack):
     """save() writes the side-file JAX's save() writes, byte for byte."""
     import jax.numpy as jnp

@@ -81,11 +81,22 @@ def test_fetch_stats_is_one_transfer_of_floats():
 
 
 def test_unported_options_raise():
+    """What the trainer still refuses, as the JAX package does: league-pool
+    opponents with trainer-computed targets (pool training uses
+    worker-side GAE), an unknown pool mode, and a horizon too short for
+    the k-step windows."""
     small = StandaloneConfig(model=ModelConfig(compute_dtype="float32",
                                                **SMALL), n_envs=2, horizon=2)
-    for kw in (dict(pool_prob=0.2), dict(reward_shaper=lambda r, d: r)):
-        with pytest.raises(NotImplementedError):
+    targets = dataclasses.replace(small.ppo, workers_computes_advantages=False,
+                                  n_step_value_estimates=3)
+    for kw in (dict(pool_prob=0.2, ppo=targets),
+               dict(pool_prob=0.2, pool_mode="elo")):
+        with pytest.raises(ValueError):
             StandaloneTrainer(dataclasses.replace(small, **kw), device="cpu")
+    tr = StandaloneTrainer(dataclasses.replace(small, ppo=targets),
+                           device="cpu")
+    with pytest.raises(ValueError):
+        tr.train_iteration()
 
 
 def jax_gumbel(jtr):

@@ -7,9 +7,11 @@ Reads the orbax checkpoint in SRC (a run directory such as
 data/demo_weights) with the JAX package's ``restore_raw``, converts it and
 writes DST/<step>/state.pt with the port's ``runtime/checkpoint.save``,
 then copies SRC's settings.json beside it unchanged.  A whole train state
-(a ``PPOState`` with optax's Adam) goes through
-``models/convert.ppo_state_from_flax``, so ``train --resume`` continues it
-in the port; a params-only checkpoint through ``params_from_flax``.
+goes through ``models/convert``, so ``train --resume`` continues it in the
+port: a ``PPOState`` with optax's Adam (also a trainer-computes-targets
+one, with its reference net) through ``ppo_state_from_flax``, a
+``DQNState`` through ``dqn_state_from_flax``; a params-only checkpoint
+through ``params_from_flax``.
 
 This is the one tool that imports both packages.  It runs where JAX is,
 on the CPU, never on the card's machine; the port itself reads only its
@@ -28,7 +30,8 @@ def convert(src: str, dst: str, step=None) -> int:
     """Convert SRC's checkpoint at ``step`` (default its latest) into DST;
     returns the step."""
     from drl_tetris_tpu.runtime import checkpoint as jckpt
-    from drl_tetris_tpu_torch.models.convert import (params_from_flax,
+    from drl_tetris_tpu_torch.models.convert import (dqn_state_from_flax,
+                                                     params_from_flax,
                                                      ppo_state_from_flax)
     from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
 
@@ -38,7 +41,8 @@ def convert(src: str, dst: str, step=None) -> int:
             raise FileNotFoundError(f"no checkpoint in {src}")
     raw = jckpt.restore_raw(src, step=step)
     if isinstance(raw, dict) and "opt_state" in raw:
-        state = ppo_state_from_flax(raw)
+        state = (ppo_state_from_flax(raw) if "adv_comp" in raw
+                 else dqn_state_from_flax(raw))
     else:
         params = raw.get("params", raw) if isinstance(raw, dict) else raw
         state = {"params": {k: v.numpy() for k, v in
