@@ -28,8 +28,8 @@ points a user calls, and times them:
    r5_learning settings (config.load), 1024 games x horizon 64, minibatch
    64, 4 epochs (4,096 Adam steps), the full-width bf16 net from
    flax-matched initial weights.  One warm-up iteration at the same
-   shapes with its update cut to one epoch (1,024 steps: the cut that
-   keeps the later phases inside the time limit), then one timed
+   shapes with its update cut to 64 minibatch steps of one epoch (the cut
+   that keeps the later phases inside the time limit), then one timed
    iteration: the one-tick entry must launch exactly 64 times in it, every
    stat be
    finite, the parameters move and Adam's lr equal the schedule's value.
@@ -38,8 +38,11 @@ points a user calls, and times them:
    on one minibatch: forward x N x (horizon + 1) + (forward + backward) x
    samples x epochs) and train_mfu, their share of the 989 TFLOP/s bf16
    peak, kernels per minibatch step from a profile of 32 steps; and holds
-   the update on 256 samples (4 steps) at float32 without TF32 on the card
-   against the CPU (first-step gradients and loss terms);
+   the update on 256 samples (4 steps) at float32 on the card against the
+   CPU (first-step gradients and loss terms).  Every float32 on the card
+   is IEEE float32 (TF32 off, set by the entry points; the script checks
+   the flags once the trainer is built), so each check runs at the
+   precision ``train`` runs at;
 5. checkpoints, the command line and evaluation (phase_cli):
    - the trained trainer of step 4 (3,602,996 parameters with Adam's
      moments) saved with runtime/checkpoint.save and restored into a fresh
@@ -73,24 +76,52 @@ points a user calls, and times them:
      first and then second;
    - ``eval`` of the DQN run against the PPO pool run and random, 64
      games per pair, with the same table checks;
-6. SVENton-DQN (phase_dqn), this slice's path: StandaloneDQNTrainer with
+   then (phase_demo) the demo agent (data/demo_weights_torch, the JAX
+   package's demo in the port's format) on the card against the JAX
+   package's own outputs on 16 positions (float32 within 1e-4, bfloat16
+   within the log-probability bound of tests/test_torch_nets.py,
+   runtime/demo.py), and ``eval`` of the CLI run against it, 64 games,
+   through the command line's entry point in this process: one one-tick
+   launch per match tick, and every match tick's output equal to the
+   plain version's from the same state and actions;
+6. SVENton-DQN (phase_dqn): StandaloneDQNTrainer with
    the DQN stack resolved by ``config.presets.load`` (the 'silver' QNet at
    the resblock widths, 3 x 64 and 4 x 64 towers, bf16; pareto sampling;
    k = 37 with the step filter (2, 3), 13 steps; 8,192 samples per update
    in minibatches of 32 over 3 epochs, 768 Adam steps; rank replay of
    2,000,000 rows on the card), 1024 games x horizon 64.  One warm-up
-   iteration, then one timed: exactly 64 one-tick launches, no host sync
+   iteration with its update cut to one epoch, then one timed: exactly 64 one-tick launches, no host sync
    inside the update (torch's sync debug mode set to error around it), the
    replay holding at least 8,192 rows, every stat finite, the parameters
    moved, the reference net equal to the net after the update, the sampled
    rows' priorities rewritten from 2.0.  Prints DQN env-steps/s, the rollout /
    replay add / targets / update split, ms per Adam step, the replay's
    bytes and the targets' FLOPs; and holds one update on 256 samples of
-   the replay (8 steps) at float32 without TF32 on the card against the
-   CPU (sampled rows, targets, first-step gradients, new priorities);
-7. the engine path (the random-policy throughput run): the T-tick entry
+   the replay (8 steps) at float32 on the card against the CPU (sampled
+   rows, targets, first-step gradients, new priorities);
+7. dual-policy training (phase_dual, phase_dual_dqn): DualPolicyTrainer
+   at the default stack and r5_learning (single_policy=False), 256 games
+   x horizon 64, minibatch 64, 4 epochs (8,192 samples and 512 Adam steps
+   per policy), a warm-up iteration with its updates cut to 64 minibatch
+   steps and one timed; DualPolicyDQNTrainer at the DQN stack, 1024 x 64, two
+   2,000,000-row replays (32,768 rows per policy per iteration), one
+   iteration.  Each: one one-tick launch per tick (both nets act on every
+   game), every tick's output equal to the plain version's (the warm-up
+   iteration's at 256 games, the DQN iteration's at 1024), the gate's
+   decisions equal to what trained and moved, every stat
+   finite; dual env-steps/s, phase_ms, ms per Adam step, the replays'
+   bytes; one dual batch's PPO update on the card against the CPU at
+   float32;
+8. the other architectures (phase_architectures): 'vanilla', 'keyboard'
+   and 'dreamer' (at the default stack's widths), PPONet and QNet forward
+   and first-step gradients on 64 boards on the card against the CPU at
+   float32; ``train --set architecture=... single_policy=false`` at 128 x
+   32 for each (the three processes at once), then ``eval`` of the three
+   and the demo agent (8 games a match), one one-tick launch per match
+   tick, each equal to the plain version's;
+9. the engine path (the random-policy throughput run): the T-tick entry
    at 4096 boards with in-kernel random actions;
-8. times: kernel, plain version and bound of each entry at the shape its
+10. times: kernel, plain version and bound of each entry at the shape its
    path gives it (the timed kernel and plain outputs are held equal too),
    the rollout's env-steps/s.  The bound is the larger of the bytes side
    (state read and written once over the memory rate) and the operations
@@ -106,7 +137,9 @@ and the script exits non-zero without that line; so does a machine with
 no CUDA device.  A copy of the results goes to chiprun_out/chip_smoke.json.
 """
 import argparse
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -133,14 +166,20 @@ N_RAGGED, T_EXTRA = 1001, 48       # ragged game count (its last block of 4
                                    # comparisons
 DEV = "cuda"
 TRAIN_EPOCHS = 4                   # the recipe's; a cut is printed
-WARM_EPOCHS = 1                    # phase_train's warm-up update (cut)
+WARM_MINIBATCHES = 64              # the PPO warm-up updates' depth (cut)
 TRAIN_SEED = 7
 H100_BF16_FLOPS = 989e12           # dense bf16 peak, H100 SXM data sheet
-# the update on the card against the CPU, float32 without TF32, from seeded
-# weights: first-step gradients relative to each leaf's largest |g| (a
-# full-width net's float32 sums in another order: measured 2.8e-5; with
-# TF32 on 8.5e-3, which this tolerance rejects), and the last of the 4
-# steps' loss terms relative (measured 1.8e-4: 3 Adam steps amplify ulps)
+# float32 on the card is IEEE float32, the precision every entry point
+# sets (drl_tetris_tpu_torch.use_ieee_float32: TF32 off), so the checks
+# below run at the precision ``train`` runs at.  A net's float32 outputs
+# on the card against the CPU, absolute (the convolutions' summation
+# order)
+NET_TOL = 1e-4
+# the update on the card against the CPU at float32, from seeded weights:
+# first-step gradients relative to each leaf's largest |g| (a full-width
+# net's float32 sums in another order: measured 2.8e-5; under TF32
+# 8.5e-3, which this tolerance rejects), and the last of the 4 steps' loss
+# terms relative (measured 1.8e-4: 3 Adam steps amplify ulps)
 UPDATE_GRAD_TOL = 1e-3
 UPDATE_STAT_TOL = 2e-3
 CLI_ENVS, CLI_HORIZON = 128, 32     # the CLI's train geometry here
@@ -152,7 +191,16 @@ DQN_PRESETS = ("default", "sventon", "sventon_dqn", "resblock",
                "experiment_sventon_dqn")
 DQN_SEED = 11
 CLI_DQN_HORIZON = 64                # 128 x 64 = 8,192 rows: an update each
-# the DQN update on the card against the CPU, float32 without TF32, on 256
+DEMO_EVAL_GAMES = 64                # the trained run against the demo
+DUAL_ENVS = 256                     # dual PPO: 8,192 samples per policy, as
+                                    # many env-steps per Adam step as 1024 x
+                                    # 64 single-policy PPO
+DUAL_SEED = 17
+PLAIN_GAMES = 16384                 # games per step_plain call of a check
+ARCHS = ("vanilla", "keyboard", "dreamer")
+ARCH_BOARDS = 64                    # boards of the card-vs-CPU net checks
+ARCH_EVAL_GAMES = 16                # the architectures' eval, per pair
+# the DQN update on the card against the CPU, float32, on 256
 # samples of the replay (8 steps): targets relative to their largest
 # |value|, first-step gradients as the PPO check's, new priorities
 # absolute (|q - target| after 8 Adam steps)
@@ -364,7 +412,7 @@ def phase_selfplay(results, card):
     if env_err != 0.0:
         raise AssertionError(f"rollout state differs from the plain replay "
                              f"({env_err})")
-    # the net: float32 on the card (no TF32) against the CPU, 8 boards
+    # the net: float32 on the card against the CPU, 8 boards
     # where a tick's time goes: the policy (observe, PPONet forward,
     # sample) against the env step (the one-tick entry and its wrapper)
     policy = make_policy_fn(env, net)
@@ -392,8 +440,6 @@ def net_card_vs_cpu(env, state):
     from drl_tetris_tpu_torch.algos.rollout import policy_inputs
     from drl_tetris_tpu_torch.models.convert import seeded_state_dict
     from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     net = PPONet(ModelConfig(compute_dtype="float32"), device="cpu")
     net.load_state_dict(seeded_state_dict(net, 3))
     obs = env.observe(state)
@@ -404,8 +450,7 @@ def net_card_vs_cpu(env, state):
         cpi, cv = net.cpu()([v.cpu() for v in vec], [v.cpu() for v in vis])
     err = max((gpi.cpu() - cpi).abs().max().item(),
               (gv.cpu() - cv).abs().max().item())
-    torch.backends.cudnn.allow_tf32 = True
-    if not err < 1e-4:
+    if not err < NET_TOL:
         raise AssertionError(f"PPONet float32 card vs CPU: {err}")
     return err
 
@@ -416,7 +461,6 @@ def phase_train(results, card):
     from torch.utils.flop_counter import FlopCounterMode
 
     from drl_tetris_tpu_torch import config
-    from drl_tetris_tpu_torch.algos.ppo import make_ppo_update
     from drl_tetris_tpu_torch.algos.rollout import policy_inputs
     from drl_tetris_tpu_torch.config.parameter import param_eval
     from drl_tetris_tpu_torch.engine import cuda_tick
@@ -434,12 +478,16 @@ def phase_train(results, card):
                            n_envs=N_SLICE, horizon=HORIZON, seed=TRAIN_SEED,
                            lr_schedule=mc.value_lr)
     tr = StandaloneTrainer(cfg, device=DEV)
+    # the precision every check below holds: IEEE float32, set by the
+    # trainer's entry point
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on after the trainer was built")
     # the warm-up is a whole iteration at the timed shapes (cuDNN,
-    # allocator) with its update cut to WARM_EPOCHS epochs: the depth of
-    # this earlier path is cut so that the later slices' phases fit
+    # allocator) with its update cut to WARM_MINIBATCHES steps: the depth
+    # of this earlier path is cut so that the later slices' phases fit
     full_update = tr.update
-    tr.update = make_ppo_update(cfg.env.engine, tr.net, dataclasses.replace(
-        ppo, n_train_epochs=WARM_EPOCHS))[1]
+    tr.update = warm_update(cfg.env.engine, tr.net, ppo)
     t0 = time.perf_counter()
     tr.train_iteration()
     sync()
@@ -501,7 +549,7 @@ def phase_train(results, card):
     log(f"[train] {card}: StandaloneTrainer r5_learning, {N_SLICE} games x "
         f"{HORIZON} ticks, minibatch {mb}, {ppo.n_train_epochs} epochs "
         f"({n_steps} Adam steps), bf16 net; warm-up iteration "
-        f"({WARM_EPOCHS} epoch) {warm_s:.1f} "
+        f"({WARM_MINIBATCHES} minibatch steps) {warm_s:.1f} "
         f"s, timed iteration {secs:.3f} s = {sps:.1f} train env-steps/s")
     log(f"[train] {card}: rollout {phase['rollout']:.1f} ms, GAE "
         f"{phase['gae']:.2f} ms, update {phase['update']:.1f} ms = "
@@ -529,63 +577,83 @@ def phase_train(results, card):
     results["_trainer"] = tr                  # phase_cli checkpoints it
 
 
+def warm_update(engine, net, ppo):
+    """A warm-up iteration's PPO update: one epoch over the batch's first
+    WARM_MINIBATCHES minibatches, at the timed shapes."""
+    from drl_tetris_tpu_torch.algos.ppo import Batch, make_ppo_update
+    update = make_ppo_update(engine, net, dataclasses.replace(
+        ppo, n_train_epochs=1))[1]
+    rows = WARM_MINIBATCHES * ppo.minibatch_size
+
+    def warm(state, batch, key):
+        if not isinstance(batch, Batch) or batch.piece.shape[0] < rows:
+            raise AssertionError("the warm-up needs a worker-side batch of "
+                                 f"at least {rows} rows")
+        return update(state, Batch(*[a[:rows] for a in batch]), key)
+    return warm
+
+
 def update_card_vs_cpu(results, card, env, env_state, ppo_cfg):
-    """The PPO update on 256 samples (4 minibatch steps) at float32 with
-    TF32 off, on the card and on the CPU, from weights drawn from a numpy
-    seed and a batch of one rollout tick of ``env`` with them; the card's
-    first-step gradients with TF32 on are printed for scale."""
+    """The PPO update on 256 samples (4 minibatch steps) at float32, on the
+    card and on the CPU, from weights drawn from a numpy seed and a batch
+    of one rollout tick of ``env`` with them."""
     from drl_tetris_tpu_torch.algos import ppo as P
     from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn
+
+    cfg = dataclasses.replace(ppo_cfg, n_train_epochs=1)
+    gen = torch.Generator(device=env.device).manual_seed(13)
+    _, seg, last = make_rollout_fn(env, seeded_f32_net(env, 3), 1)(
+        env_state, gen)
+    batch, _ = P.segment_to_batch(cfg, seg, last)
+    grad_err, stat_err = hold_ppo_update(card, "[train]", env.cfg.engine,
+                                         cfg, batch, 3)
+    results.update(update_grad_err=grad_err, update_stat_err=stat_err)
+
+
+def seeded_f32_net(env, seed, device=None, cls=None, model=None):
+    """A float32 net (PPONet by default, at the main path's widths) for
+    ``env``'s board on ``device`` (default the env's), weights drawn from
+    a numpy seed."""
+    from drl_tetris_tpu_torch.models.convert import seeded_state_dict
+    from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
+    e = env.cfg.engine
+    net = (cls or PPONet)(model or ModelConfig(compute_dtype="float32"),
+                          board=(e.height, e.width),
+                          device=device or env.device)
+    net.load_state_dict(seeded_state_dict(net, seed))
+    return net
+
+
+def hold_ppo_update(card, tag, engine, cfg, batch, seed):
+    """The first 4 minibatch steps of ``cfg``'s update on ``batch``'s first
+    rows, at float32 from a numpy-seeded net, on the card and on the CPU:
+    first-step gradients and the last step's loss terms.  Raises beyond
+    the tolerances; returns (gradient error, loss-term error)."""
+    from drl_tetris_tpu_torch.algos import ppo as P
     from drl_tetris_tpu_torch.engine import rng
     from drl_tetris_tpu_torch.models.convert import seeded_state_dict
     from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
 
-    cfg = dataclasses.replace(ppo_cfg, n_train_epochs=1)
     n = 4 * cfg.minibatch_size
-    engine = env.cfg.engine
-    model = ModelConfig(compute_dtype="float32")
-
-    def make_net(dev):
-        net = PPONet(model, board=(engine.height, engine.width), device=dev)
-        net.load_state_dict(seeded_state_dict(net, 3))
-        return net
-
-    gen = torch.Generator(device=env.device).manual_seed(13)
-    _, seg, last = make_rollout_fn(env, make_net(env.device), 1)(env_state,
-                                                                 gen)
-    batch, _ = P.segment_to_batch(cfg, seg, last)
     batch = P.Batch(*[a[:n].cpu() for a in batch])
 
-    def run(dev, update=True):
-        net = make_net(dev)
+    def run(dev):
+        net = PPONet(ModelConfig(compute_dtype="float32"),
+                     board=(engine.height, engine.width), device=dev)
+        net.load_state_dict(seeded_state_dict(net, seed))
         key = rng.prng_key(11, dev)
         b = P.Batch(*[a.to(dev) for a in batch])
         grads, _ = P.first_step_gradients(engine, cfg, net, b, key)
         grads = {k: g.cpu() for k, g in grads.items()}
-        if not update:
-            return grads, None
         init_fn, update_fn = P.make_ppo_update(engine, net, cfg)
         _, stats = update_fn(init_fn(), b, key)
         return grads, {k: v.item() for k, v in stats.items()}
 
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    try:
-        torch.backends.cudnn.allow_tf32 = True
-        g_tf32, _ = run(DEV, update=False)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        g_card, s_card = run(DEV)
-        g_cpu, s_cpu = run("cpu")
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
-
-    def grad_errs(g):
-        return {k: (g[k] - ref).abs().max().item()
-                / max(ref.abs().max().item(), 1e-30)
-                for k, ref in g_cpu.items()}
-    errs, errs_tf32 = grad_errs(g_card), grad_errs(g_tf32)
+    g_card, s_card = run(DEV)
+    g_cpu, s_cpu = run("cpu")
+    errs = {k: (g_card[k] - ref).abs().max().item()
+            / max(ref.abs().max().item(), 1e-30)
+            for k, ref in g_cpu.items()}
     worst = sorted(errs, key=errs.get, reverse=True)[:3]
     grad_err = errs[worst[0]]
     stat_errs = {k: abs(s_card[k] - v) / max(abs(v), 1e-6)
@@ -594,38 +662,140 @@ def update_card_vs_cpu(results, card, env, env_state, ppo_cfg):
     stat_err = stat_errs[worst_stat]
     sat_err = max(abs(s_card[k] - v) for k, v in s_cpu.items()
                   if "saturation" in k)
-    log(f"[train] {card}: update card vs cpu, float32, TF32 off, {n} "
-        f"samples, {n // cfg.minibatch_size} steps: first-step gradients "
+    log(f"{tag} {card}: update card vs cpu, float32, {n} samples, "
+        f"{n // cfg.minibatch_size} steps: first-step gradients "
         f"{grad_err:.3e} of each leaf's max (tolerance {UPDATE_GRAD_TOL}; "
         f"worst leaves "
         f"{', '.join(f'{k} {errs[k]:.2e}' for k in worst)}; median "
         f"{sorted(errs.values())[len(errs) // 2]:.2e}), last-step loss "
         f"terms {stat_err:.3e} relative ({worst_stat}; tolerance "
-        f"{UPDATE_STAT_TOL}), "
-        f"saturations {sat_err}; with TF32 on the gradients are "
-        f"{max(errs_tf32.values()):.3e} (median "
-        f"{sorted(errs_tf32.values())[len(errs) // 2]:.2e})")
+        f"{UPDATE_STAT_TOL}), saturations {sat_err}")
     if not (grad_err < UPDATE_GRAD_TOL and stat_err < UPDATE_STAT_TOL
             and sat_err <= 1.0 / cfg.minibatch_size):
-        raise AssertionError("the update on the card disagrees with the CPU")
-    results.update(update_grad_err=grad_err, update_stat_err=stat_err,
-                   update_grad_err_tf32=max(errs_tf32.values()))
+        raise AssertionError(f"{tag} the update on the card disagrees with "
+                             f"the CPU")
+    return grad_err, stat_err
+
+
+def start_cli(args):
+    """Start ``python -m drl_tetris_tpu_torch ARGS`` on the card from the
+    checkout; returns (process, start time)."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-m", "drl_tetris_tpu_torch",
+                             *args, "--device", DEV], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=REPO)
+    return proc, time.perf_counter()
+
+
+def finish_cli(started, label):
+    """Wait for a ``start_cli`` process (killed past CLI_TIMEOUT); returns
+    (stdout, seconds).  Fails on a non-zero exit."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {label} exited {proc.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    return out, secs
 
 
 def run_cli(args, label):
-    """``python -m drl_tetris_tpu_torch ARGS`` on the card from the
-    checkout; returns (stdout, seconds).  Fails on a non-zero exit."""
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "drl_tetris_tpu_torch",
-                          *args, "--device", DEV], capture_output=True,
-                         text=True, env=env, cwd=REPO, timeout=CLI_TIMEOUT)
-    secs = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"CLI {label} exited {out.returncode}:\n"
-                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    return out.stdout, secs
+    """``python -m drl_tetris_tpu_torch ARGS`` on the card; returns
+    (stdout, seconds)."""
+    return finish_cli(start_cli(args), label)
+
+
+def eval_here(paths, games):
+    """The ``eval`` verb of the command line in this process (its entry
+    point, ``cli.main.main``) on the card, with every match tick recorded:
+    returns (stdout, match ticks, one-tick launches, seconds, max |kernel
+    - plain| over the match ticks, their dones).  Fails unless the
+    one-tick entry launched once per match tick and every tick equals the
+    plain version's."""
+    from drl_tetris_tpu_torch.cli.main import main as cli_main
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    out = io.StringIO()
+    with recorded_match_ticks() as ticks_in, \
+            contextlib.redirect_stdout(out):
+        for k in cuda_tick.LAUNCHES:
+            cuda_tick.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        cli_main(["eval", *paths, "--games", str(games), "--device", DEV])
+        sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_tick.LAUNCHES)
+    ticks = len(ticks_in)
+    if launches["step"] != ticks or launches["rollout"] != 0 or ticks == 0:
+        raise AssertionError(f"eval: launches {launches} for {ticks} match "
+                             f"ticks: the one-tick entry must carry each")
+    err, dones = held_against_plain(ticks_in, "eval match ticks")
+    return out.getvalue(), ticks, launches["step"], secs, err, dones
+
+
+def held_against_plain(ticks_in, label):
+    """Each recorded tick ((cfg, state, r, t), (state', reward, done)) of
+    the one-tick entry against ``step_plain`` from the same state and
+    actions: returns (max |kernel - plain| over every leaf, reward and
+    done, the dones).  Fails unless that is 0.0 and some game finished.
+    A game's tick depends on that game alone, so the ticks go through
+    ``step_plain`` concatenated along the game axis, PLAIN_GAMES games a
+    call (the plain tick costs about the same at 8 games as at 4096)."""
+    from drl_tetris_tpu_torch.engine.checks import tick_err
+    from drl_tetris_tpu_torch.engine.core import tree_map
+    from drl_tetris_tpu_torch.env.env import step_plain
+    cfg = ticks_in[0][0][0]
+    if any(inputs[0] != cfg for inputs, _ in ticks_in):
+        raise AssertionError(f"{label}: the ticks ran two configurations")
+
+    def cat(*xs):
+        return torch.cat(xs)
+    err, dones, start = 0.0, 0, 0
+    while start < len(ticks_in):
+        end, games = start, 0
+        while end < len(ticks_in) and (end == start or games + len(
+                ticks_in[end][1][1]) <= PLAIN_GAMES):
+            games += len(ticks_in[end][1][1])
+            end += 1
+        group = ticks_in[start:end]
+        inputs = [tree_map(cat, *[i[k] for i, _ in group])
+                  for k in (1, 2, 3)]
+        out = [tree_map(cat, *[o[k] for _, o in group]) for k in (0, 1, 2)]
+        err = max(err, tick_err(tuple(out), step_plain(cfg, *inputs)))
+        dones += int(out[2].sum())
+        start = end
+    if err != 0.0 or dones == 0:
+        raise AssertionError(f"{label}: kernel vs plain {err} over "
+                             f"{len(ticks_in)} ticks, {dones} dones")
+    return err, dones
+
+
+def check_eval(text, names, games):
+    """An eval's tables: every pair played ``games`` (wins + draws), the
+    TOTAL column sums the wins, every entrant rated.  Returns ({(a, b):
+    wins}, {(a, b): draws}, {name: Elo})."""
+    table, _, rest = text.partition("Draws (games undecided at the tick "
+                                    "limit):")
+    draw_text, _, elo_text = rest.partition("Elo (Bradley-Terry MLE):")
+    cells, totals = score_table(table, names)
+    ratings = dict(re.findall(r"(\S+)\s+(-?\d+\.\d)", elo_text))
+    draws = {(a, b): int(n) for a, b, n in
+             re.findall(r"(\S+) vs (\S+): (\d+)", draw_text)}
+    for a, b in itertools.combinations(names, 2):
+        (w_ab, g_ab), (w_ba, g_ba) = cells[(a, b)], cells[(b, a)]
+        if g_ab != games or g_ba != games or \
+                w_ab + w_ba + draws.get((a, b), -1) != games:
+            raise AssertionError(f"eval output:\n{text}")
+    if set(ratings) != set(names) or totals != {
+            a: sum(cells[(a, b)][0] for b in names if b != a) for a in names}:
+        raise AssertionError(f"eval output:\n{text}")
+    return {k: w for k, (w, _) in cells.items()}, draws, ratings
 
 
 def iteration_sps(stdout):
@@ -651,6 +821,46 @@ def score_table(text, names):
     return cells, totals
 
 
+@contextlib.contextmanager
+def recorded_match_ticks():
+    """Within the block, every env step of ``runtime/evaluate``'s matches
+    is recorded as ((cfg, state, r, t), (state', reward, done)) in the
+    list it yields."""
+    from drl_tetris_tpu_torch.runtime import evaluate
+    ticks_in = []
+    env_cls = evaluate.TetrisVectorEnv
+
+    class Recorded(env_cls):
+        def step(self, state, rotations, translations):
+            out = super().step(state, rotations, translations)
+            ticks_in.append(((self.cfg, state, rotations, translations), out))
+            return out
+    evaluate.TetrisVectorEnv = Recorded
+    try:
+        yield ticks_in
+    finally:
+        evaluate.TetrisVectorEnv = env_cls
+
+
+@contextlib.contextmanager
+def recorded_steps(env):
+    """Within the block, every ``env.step`` of this env (a trainer's) is
+    recorded as ((cfg, state, r, t), (state', reward, done)) in the list
+    it yields."""
+    ticks_in = []
+    step = env.step
+
+    def recording(state, rotations, translations):
+        out = step(state, rotations, translations)
+        ticks_in.append(((env.cfg, state, rotations, translations), out))
+        return out
+    env.step = recording
+    try:
+        yield ticks_in
+    finally:
+        del env.step
+
+
 def phase_cli(results, card):
     """Checkpoints, the command line and evaluation on the card: the
     trained full-width trainer's checkpoint round trip; ``train`` (2
@@ -662,8 +872,6 @@ def phase_cli(results, card):
     from drl_tetris_tpu_torch.config.presets import CLI_PRESETS
     from drl_tetris_tpu_torch.algos.rollout import policy_inputs
     from drl_tetris_tpu_torch.engine import cuda_tick
-    from drl_tetris_tpu_torch.engine.checks import tick_err
-    from drl_tetris_tpu_torch.env.env import step_plain
     from drl_tetris_tpu_torch.models.nets import PPONet
     from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
     from drl_tetris_tpu_torch.runtime import evaluate
@@ -855,16 +1063,7 @@ def phase_cli(results, card):
     # one warm match at the round robin's shapes (cuDNN, allocator)
     evaluate.play_match(tr.cfg.env, tuple(agents),
                         n_games=EVAL_GAMES // 2, seed=2)
-    ticks_in = []                             # (inputs, kernel's outputs)
-    env_cls = evaluate.TetrisVectorEnv
-
-    class Recorded(env_cls):
-        def step(self, state, rotations, translations):
-            out = super().step(state, rotations, translations)
-            ticks_in.append(((self.cfg, state, rotations, translations), out))
-            return out
-    evaluate.TetrisVectorEnv = Recorded
-    try:
+    with recorded_match_ticks() as ticks_in:
         for k in cuda_tick.LAUNCHES:
             cuda_tick.LAUNCHES[k] = 0
         sync()
@@ -874,8 +1073,6 @@ def phase_cli(results, card):
         sync()
         rr_s = time.perf_counter() - t0
         launches = dict(cuda_tick.LAUNCHES)
-    finally:
-        evaluate.TetrisVectorEnv = env_cls
     ticks = len(ticks_in)
     if launches["step"] != ticks or launches["rollout"] != 0 or ticks == 0:
         raise AssertionError(f"launches {launches} for {ticks} match ticks:"
@@ -886,13 +1083,8 @@ def phase_cli(results, card):
     match_sps = EVAL_GAMES // 2 * ticks / rr_s
     # what the kernel computed on each match tick against the plain version
     # from the same state and actions
-    match_err = max(tick_err(out, step_plain(*inputs))
-                    for inputs, out in ticks_in)
-    match_done = sum(int(out[2].sum()) for _, out in ticks_in)
+    match_err, match_done = held_against_plain(ticks_in, "match ticks")
     results["errs"]["step_eval"] = match_err
-    if match_err != 0.0 or match_done == 0:
-        raise AssertionError(f"match ticks: kernel vs plain {match_err}, "
-                             f"{match_done} dones")
     log(f"[cli] {card}: round robin in process, full width, trained "
         f"(argmax) vs random (pi), {EVAL_GAMES} games, after one warm "
         f"match: {ticks} match ticks in 2 matches of {EVAL_GAMES // 2} "
@@ -902,7 +1094,7 @@ def phase_cli(results, card):
         f"one-tick launches {launches['step']} (one per match tick); "
         f"{board.wins[('trained', 'random')]}-"
         f"{board.wins[('random', 'trained')]}, Elo {fit_elo(board)}")
-    tmp.cleanup()
+    results["_cli_tmp"] = tmp                 # phase_demo evaluates "smoke"
     results.update(
         ckpt_save_ms=save_ms, ckpt_restore_ms=restore_ms,
         ckpt_bytes=n_bytes, ckpt_params=n_params, cli_train_s=train_s,
@@ -932,10 +1124,16 @@ def phase_dqn(results, card):
         action_temperature=fw.action_temperature,
         tau_learning_rate=fw.tau_learning_rate, seed=DQN_SEED)
     tr = StandaloneDQNTrainer(cfg, device=DEV)
+    # the warm-up iteration (cuDNN, allocator) runs its update for one
+    # epoch at the timed shapes: a cut of this earlier path's depth
+    full = tr.update
+    tr.update = D.make_dqn_update(cfg.env.engine, tr.net, dataclasses.replace(
+        cfg.dqn, n_train_epochs=1), cfg.replay)[1]
     t0 = time.perf_counter()
-    tr.train_iteration()                      # cuDNN, allocator
+    tr.train_iteration()
     sync()
     warm_s = time.perf_counter() - t0
+    tr.update = full
     before = [p.detach().clone() for p in tr.net.parameters()]
     updates_before = tr.state.update_count
     written = []                              # the update's prio write
@@ -1017,7 +1215,8 @@ def phase_dqn(results, card):
         f"minibatches of {cfg.dqn.minibatch_size} x "
         f"{cfg.dqn.n_train_epochs} epochs ({steps} Adam steps), "
         f"{cfg.model.compute_dtype} QNet; "
-        f"warm-up iteration {warm_s:.1f} s, timed iteration {secs:.3f} s = "
+        f"warm-up iteration (one epoch) {warm_s:.1f} s, timed iteration "
+        f"{secs:.3f} s = "
         f"{sps:.1f} DQN env-steps/s")
     log(f"[dqn] {card}: rollout {phase['rollout']:.1f} ms, replay add "
         f"{phase['replay_add']:.2f} ms, sample + targets "
@@ -1041,8 +1240,8 @@ def phase_dqn(results, card):
 
 
 def dqn_update_card_vs_cpu(results, card, tr):
-    """One DQN update on 256 samples (8 minibatch steps) at float32 with
-    TF32 off, on the card and on the CPU, from weights drawn from a numpy
+    """One DQN update on 256 samples (8 minibatch steps) at float32, on
+    the card and on the CPU, from weights drawn from a numpy
     seed, over a copy of the first rows of ``tr``'s replay and the same
     injected gumbel noise: the sampled rows, their targets, the first-step
     gradients and the new priorities."""
@@ -1085,16 +1284,8 @@ def dqn_update_card_vs_cpu(results, card, tr):
         return (idx.cpu(), samples["target"].cpu(),
                 {k: g.cpu() for k, g in grads.items()}, st.prio.cpu())
 
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    try:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        c_idx, c_tgt, c_grads, c_prio = run(DEV)
-        h_idx, h_tgt, h_grads, h_prio = run("cpu")
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
+    c_idx, c_tgt, c_grads, c_prio = run(DEV)
+    h_idx, h_tgt, h_grads, h_prio = run("cpu")
     same_rows = bool(torch.equal(c_idx, h_idx))
     tgt_err = ((c_tgt - h_tgt).abs().max()
                / h_tgt.abs().max().clamp(min=1e-30)).item()
@@ -1102,7 +1293,7 @@ def dqn_update_card_vs_cpu(results, card, tr):
                     / g.abs().max().clamp(min=1e-30)).item()
                    for k, g in h_grads.items())
     prio_err = (c_prio - h_prio).abs().max().item()
-    log(f"[dqn] {card}: update card vs cpu, float32, TF32 off, 256 samples "
+    log(f"[dqn] {card}: update card vs cpu, float32, 256 samples "
         f"of {rows} replay rows, 8 steps: sampled rows equal {same_rows}; "
         f"targets {tgt_err:.3e} of the largest (tolerance {DQN_TARGET_TOL}), "
         f"first-step gradients {grad_err:.3e} of each leaf's max "
@@ -1139,6 +1330,333 @@ def phase_engine(results, card):
         f"+{grew}, T-tick launches {launches['rollout']}")
     results["rollout_launches"] = launches["rollout"]
     results["engine_reset_share"] = grew / (N_ENGINE * T_ENGINE)
+
+
+def phase_demo(results, card):
+    """The demo agent on the card: its net against the JAX package's own
+    outputs (data/demo_weights_torch/demo_outputs.npz) at float32 and
+    bfloat16, and ``eval`` of phase_cli's trained run against it through
+    the command line's entry point, DEMO_EVAL_GAMES games, one one-tick
+    launch per match tick, each held against the plain version."""
+    from drl_tetris_tpu_torch.runtime import demo
+    tmp = results.pop("_cli_tmp")
+    try:
+        errs = demo.fixture_errors(DEV)
+        demo.check_fixture(errs)
+        names = ["smoke", os.path.basename(demo.DEMO_DIR)]
+        out, ticks, launches, secs, tick_max, dones = eval_here(
+            [os.path.join(tmp.name, "models", "smoke"), demo.DEMO_DIR],
+            DEMO_EVAL_GAMES)
+        wins, draws, ratings = check_eval(out, names, DEMO_EVAL_GAMES)
+    finally:
+        tmp.cleanup()
+    log(f"[demo] {card}: the demo agent (step 6,029,312) on the card "
+        f"against JAX's outputs on 16 positions: float32 pi "
+        f"{errs['float32']['pi']:.3e}, v {errs['float32']['v']:.3e} "
+        f"(tolerance {demo.F32_TOL}); bfloat16 pi "
+        f"{errs['bfloat16']['pi']:.3e}, v {errs['bfloat16']['v']:.3e}, log "
+        f"pi {errs['bfloat16']['log_pi']:.3e} (tolerances {demo.BF16_TOL})")
+    log(f"[demo] {card}: eval smoke vs the demo, {DEMO_EVAL_GAMES} games, "
+        f"in {secs:.1f} s: wins {wins}, draws {draws}, Elo {ratings}; "
+        f"{ticks} match ticks, one-tick launches {launches}; max |kernel "
+        f"- plain| over the {ticks} match ticks {tick_max} ({dones} dones)")
+    results["errs"]["step_demo_eval"] = tick_max
+    results.update(demo_errs=errs, demo_eval_ticks=ticks,
+                   demo_eval_launches=launches, demo_eval_s=secs,
+                   demo_eval_wins={f"{a} vs {b}": w
+                                   for (a, b), w in wins.items()})
+
+
+def moved_and_trained(stats, nets, before):
+    """(per policy: trained by the update, max |dparam|) of a dual
+    iteration; fails unless exactly the trained policies moved."""
+    trained = [any(k.startswith(f"policy_{p}/") for k in stats)
+               for p in (0, 1)]
+    moved = [max((p.detach() - b).abs().max().item()
+                 for p, b in zip(net.parameters(), bs))
+             for net, bs in zip(nets, before)]
+    if [m > 0.0 for m in moved] != trained or not any(trained):
+        raise AssertionError(f"trained {trained}, parameters moved {moved}")
+    return trained, moved
+
+
+def phase_dual(results, card):
+    """Dual-policy PPO (single_policy=False) at the CLI's default stack
+    and r5_learning: DUAL_ENVS games x HORIZON ticks, minibatch 64, 4
+    epochs (8,192 samples per policy).  Both nets act every tick, one
+    one-tick launch per tick; the merge and split with unsigned-gamma GAE;
+    a PPO update of each policy the win-rate gate lets train.  One
+    warm-up iteration (its updates cut to WARM_MINIBATCHES steps) whose
+    ticks are held
+    against the plain version, one timed; then one dual batch's update on
+    the card against the CPU at float32."""
+    from drl_tetris_tpu_torch import config
+    from drl_tetris_tpu_torch.algos.dual import (make_dual_rollout_fn,
+                                                 split_dual_segment)
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.runtime.standalone import (DualPolicyConfig,
+                                                         DualPolicyTrainer)
+    mc = config.load("r5_learning")
+    ppo = dataclasses.replace(mc.ppo, single_policy=False,
+                              n_train_epochs=TRAIN_EPOCHS)
+    cfg = DualPolicyConfig(env=mc.env, model=mc.model, ppo=ppo,
+                           n_envs=DUAL_ENVS, horizon=HORIZON, seed=DUAL_SEED)
+    tr = DualPolicyTrainer(cfg, device=DEV)
+    full = tr.update
+    tr.update = warm_update(cfg.env.engine, tr.nets[0], ppo)
+    with recorded_steps(tr.env) as ticks_in:
+        t0 = time.perf_counter()
+        tr.train_iteration()
+        sync()
+        warm_s = time.perf_counter() - t0
+    tick_max, dones = held_against_plain(ticks_in, "dual PPO ticks")
+    del ticks_in
+    tr.update = full
+    before = [[p.detach().clone() for p in n.parameters()] for n in tr.nets]
+    for k in cuda_tick.LAUNCHES:
+        cuda_tick.LAUNCHES[k] = 0
+    sync()
+    t0 = time.perf_counter()
+    stats = tr.train_iteration()
+    sync()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_tick.LAUNCHES)
+    phase = dict(tr.phase_ms)
+    if launches["step"] != HORIZON or launches["rollout"] != 0:
+        raise AssertionError(f"dual launches {launches}: the one-tick entry "
+                             f"must carry each of the {HORIZON} ticks")
+    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"dual stats not finite: {bad}")
+    trained, moved = moved_and_trained(stats, tr.nets, before)
+    gate = [tr.winrate.should_train(p) for p in (0, 1)]
+    if trained != gate:
+        raise AssertionError(f"trained {trained}, the gate says {gate}")
+    per_policy = DUAL_ENVS * HORIZON // 2
+    steps = ppo.n_train_epochs * (per_policy // ppo.minibatch_size)
+    upd_ms = sum(phase.get(f"update_{p}", 0.0) for p in (0, 1))
+    ms_step = upd_ms / (steps * sum(trained))
+    sps = DUAL_ENVS * HORIZON / secs
+    cuda_tick.raise_if_overflowed(tr.env_state.current_player.device)
+    log(f"[dual] {card}: DualPolicyTrainer r5_learning single_policy=False, "
+        f"{DUAL_ENVS} games x {HORIZON} ticks ({per_policy} samples per "
+        f"policy), minibatch {ppo.minibatch_size}, {ppo.n_train_epochs} "
+        f"epochs ({steps} Adam steps per policy), bf16 nets; warm-up "
+        f"iteration ({WARM_MINIBATCHES} minibatch steps per policy) "
+        f"{warm_s:.1f} s, timed iteration "
+        f"{secs:.3f} s = {sps:.1f} dual env-steps/s")
+    log(f"[dual] {card}: phase_ms "
+        f"{ {k: round(v, 2) for k, v in phase.items()} }; "
+        f"{ms_step:.3f} ms per Adam step; one-tick launches "
+        f"{launches['step']}; gate: win rate of policy 0 "
+        f"{tr.winrate.rate_0:.4f}, trained {trained}, max |dparam| "
+        f"{[f'{m:.3e}' for m in moved]}; max |kernel - plain| over the "
+        f"warm-up's {HORIZON} ticks at {DUAL_ENVS} games {tick_max} "
+        f"({dones} dones)")
+    results["errs"]["step_dual"] = tick_max
+    # one dual batch (2 ticks of both float32 nets on the trainer's games)
+    # through the update on the card and on the CPU
+    nets = [seeded_f32_net(tr.env, seed) for seed in (3, 4)]
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    _, seg, last = make_dual_rollout_fn(tr.env, nets, 2)(tr.env_state, gen)
+    one = dataclasses.replace(ppo, n_train_epochs=1)
+    b0, _, _ = split_dual_segment(one, seg, last)
+    grad_err, stat_err = hold_ppo_update(card, "[dual]", cfg.env.engine,
+                                         one, b0, 3)
+    results.update(
+        dual_s=secs, dual_sps=sps, dual_warm_s=warm_s, dual_phase_ms=phase,
+        dual_ms_per_step=ms_step, dual_launches=launches["step"],
+        dual_trained=trained, dual_winrate=float(tr.winrate.rate_0),
+        dual_grad_err=grad_err, dual_stat_err=stat_err)
+
+
+def phase_dual_dqn(results, card):
+    """Dual-policy SVENton-DQN at the CLI's DQN stack, N_SLICE games x
+    HORIZON ticks: both QNets act with pareto sampling (one one-tick
+    launch per tick), the merged transitions of each policy go to its own
+    2,000,000-row replay on the card (32,768 rows per policy per
+    iteration), and each policy the gate lets train takes an update of
+    768 Adam steps.  One timed iteration (phase_dqn warmed the same
+    shapes); its ticks are held against the plain version afterwards."""
+    from drl_tetris_tpu_torch.config.presets import load
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.runtime.standalone import (
+        DualPolicyDQNConfig, DualPolicyDQNTrainer)
+    fw = load(DQN_PRESETS)
+    cfg = DualPolicyDQNConfig(
+        env=fw.env, model=fw.model, dqn=fw.dqn, replay=fw.replay,
+        n_envs=N_SLICE, horizon=HORIZON,
+        train_distribution=fw.train_distribution, epsilon=fw.epsilon,
+        action_temperature=fw.action_temperature,
+        tau_learning_rate=fw.tau_learning_rate, seed=DQN_SEED,
+        winrate_lr=fw.settings.get("winrate_learningrate", 0.02),
+        winrate_tolerance=fw.settings.get("winrate_tolerance", 0.1))
+    tr = DualPolicyDQNTrainer(cfg, device=DEV)
+    before = [[p.detach().clone() for p in n.parameters()] for n in tr.nets]
+    for k in cuda_tick.LAUNCHES:
+        cuda_tick.LAUNCHES[k] = 0
+    sync()
+    with recorded_steps(tr.env) as ticks_in:
+        t0 = time.perf_counter()
+        stats = tr.train_iteration()
+        sync()
+        secs = time.perf_counter() - t0
+    launches = dict(cuda_tick.LAUNCHES)
+    phase = dict(tr.phase_ms)
+    tick_max, dones = held_against_plain(ticks_in, "dual DQN ticks")
+    del ticks_in
+    if launches["step"] != HORIZON or launches["rollout"] != 0:
+        raise AssertionError(f"dual DQN launches {launches}: the one-tick "
+                             f"entry must carry each of the {HORIZON} ticks")
+    rows = N_SLICE * HORIZON // 2
+    if [r.size for r in tr.replays] != [rows, rows]:
+        raise AssertionError(f"replays hold {[r.size for r in tr.replays]} "
+                             f"rows, not {rows} each")
+    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"dual DQN stats not finite: {bad}")
+    trained, moved = moved_and_trained(stats, tr.nets, before)
+    gate = [tr.winrate.should_train(p) for p in (0, 1)]
+    if trained != gate:
+        raise AssertionError(f"trained {trained}, the gate says {gate}")
+    n = cfg.dqn.n_samples_each_update
+    steps = cfg.dqn.n_train_epochs * (n // cfg.dqn.minibatch_size)
+    upd_ms = sum(phase.get(f"update_{p}", 0.0) for p in (0, 1))
+    ms_step = upd_ms / (steps * sum(trained))
+    sps = N_SLICE * HORIZON / secs
+    replay_bytes = sum(r.nbytes() for r in tr.replays)
+    cuda_tick.raise_if_overflowed(tr.env_state.current_player.device)
+    log(f"[dual dqn] {card}: DualPolicyDQNTrainer {' '.join(DQN_PRESETS)} "
+        f"single_policy=False, {N_SLICE} games x {HORIZON} ticks "
+        f"({rows} rows per policy), {cfg.train_distribution}, {n} samples "
+        f"per update ({steps} Adam steps per policy); one iteration "
+        f"{secs:.3f} s = {sps:.1f} dual DQN env-steps/s")
+    log(f"[dual dqn] {card}: phase_ms "
+        f"{ {k: round(v, 2) for k, v in phase.items()} }; {ms_step:.3f} ms "
+        f"per Adam step; one-tick launches {launches['step']}; replays "
+        f"{replay_bytes} bytes on the card; gate: win rate of policy 0 "
+        f"{tr.winrate.rate_0:.4f}, trained {trained}, max |dparam| "
+        f"{[f'{m:.3e}' for m in moved]}; max |kernel - plain| over the "
+        f"{HORIZON} ticks at {N_SLICE} games {tick_max} ({dones} dones)")
+    results["errs"]["step_dual_dqn"] = tick_max
+    results.update(
+        dual_dqn_s=secs, dual_dqn_sps=sps, dual_dqn_phase_ms=phase,
+        dual_dqn_ms_per_step=ms_step, dual_dqn_launches=launches["step"],
+        dual_dqn_replay_bytes=replay_bytes, dual_dqn_trained=trained,
+        dual_dqn_winrate=float(tr.winrate.rate_0))
+
+
+def phase_architectures(results, card):
+    """'vanilla', 'keyboard' and 'dreamer' (dreamer at the default
+    stack's widths): PPONet and QNet forward and first-step gradients on
+    the card against the CPU at float32 on ARCH_BOARDS boards (the PPO
+    loss on a rollout tick's batch; the DQN loss on its rows with seeded
+    targets); a dual ``train`` of each through the command line at
+    CLI_ENVS x CLI_HORIZON (one iteration, the three processes at once);
+    then ``eval`` of the three and the demo agent, one one-tick launch per
+    match tick, each held against the plain version."""
+    import tempfile
+
+    from drl_tetris_tpu_torch import config
+    from drl_tetris_tpu_torch.algos import dqn as D
+    from drl_tetris_tpu_torch.algos import ppo as P
+    from drl_tetris_tpu_torch.algos.rollout import (make_rollout_fn,
+                                                    policy_inputs)
+    from drl_tetris_tpu_torch.config.presets import CLI_PRESETS, load
+    from drl_tetris_tpu_torch.engine import rng
+    from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
+    from drl_tetris_tpu_torch.models.nets import PPONet, QNet
+    from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
+    from drl_tetris_tpu_torch.runtime import demo
+
+    env = TetrisVectorEnv(EnvConfig(), ARCH_BOARDS, device=DEV)
+    state = env.reset(23)
+    engine = env.cfg.engine
+    ppo = dataclasses.replace(config.load("r5_learning").ppo,
+                              n_train_epochs=1, minibatch_size=ARCH_BOARDS)
+    dqn = dataclasses.replace(load(DQN_PRESETS).dqn, n_train_epochs=1,
+                              minibatch_size=ARCH_BOARDS)
+    vec, vis = policy_inputs(env.observe(state))
+    targets = torch.from_numpy(np.random.RandomState(31).uniform(
+        -1, 1, ARCH_BOARDS).astype(np.float32))
+    errs = {}
+    for arch in ARCHS:
+        model = dataclasses.replace(config.load().model, architecture=arch,
+                                    compute_dtype="float32")
+        for cls in (PPONet, QNet):
+            _, seg, last = make_rollout_fn(
+                env, seeded_f32_net(env, 5, DEV, cls, model), 1, "argmax")(
+                    state)
+            batch, _ = P.segment_to_batch(ppo, seg, last)
+            rows = {"occ0": seg.occ[0], "vec0": seg.vec[0], "rot": seg.rot[0],
+                    "trans": seg.trans[0], "piece": seg.piece[0]}
+            outs, grads = {}, {}
+            for dev in (DEV, "cpu"):
+                net = seeded_f32_net(env, 5, dev, cls, model)
+                with torch.no_grad():
+                    outs[dev] = [o.cpu() for o in net(
+                        [v.to(dev) for v in vec], [v.to(dev) for v in vis])]
+                key = rng.prng_key(11, dev)
+                if cls is PPONet:
+                    g, _ = P.first_step_gradients(
+                        engine, ppo, net, P.Batch(*[a.to(dev) for a in batch]),
+                        key)
+                else:
+                    samples = {k: v.to(dev) for k, v in rows.items()}
+                    samples["target"] = targets.to(dev)
+                    g, _, _ = D.first_step_gradients(
+                        engine, dqn, net, samples,
+                        torch.ones(ARCH_BOARDS, device=dev), key)
+                grads[dev] = {k: v.cpu() for k, v in g.items()}
+            fwd = max((a - b).abs().max().item()
+                      for a, b in zip(outs[DEV], outs["cpu"]))
+            grad = max((grads[DEV][k] - g).abs().max().item()
+                       / max(g.abs().max().item(), 1e-30)
+                       for k, g in grads["cpu"].items())
+            errs[f"{arch} {cls.__name__}"] = (fwd, grad)
+    log(f"[arch] {card}: float32 card vs cpu on {ARCH_BOARDS} boards, "
+        f"(forward max abs, first-step gradients of each leaf's max): "
+        f"{ {k: (f'{a:.2e}', f'{b:.2e}') for k, (a, b) in errs.items()} } "
+        f"(tolerances {NET_TOL}, {UPDATE_GRAD_TOL})")
+    if not all(a < NET_TOL and b < UPDATE_GRAD_TOL for a, b in errs.values()):
+        raise AssertionError(f"an architecture disagrees card vs CPU: {errs}")
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_arch-")
+    try:
+        per_iter = CLI_ENVS * CLI_HORIZON
+        started = {arch: start_cli(
+            ["train", "--presets", *CLI_PRESETS, "r5_learning", "--data-dir",
+             tmp.name, "--run-id", arch, "--n-envs", str(CLI_ENVS),
+             "--horizon", str(CLI_HORIZON), "--seed", "7", "--steps",
+             str(per_iter), "--set", f"architecture={arch}",
+             "single_policy=false"]) for arch in ARCHS}
+        train_s = {}
+        for arch, proc in started.items():
+            out, train_s[arch] = finish_cli(proc, f"train ({arch}, dual)")
+            run_dir = os.path.join(tmp.name, "models", arch)
+            if sorted(iteration_sps(out)) != [per_iter] or \
+                    ckpt.latest_step(run_dir) != per_iter or \
+                    ckpt.load_settings(run_dir)["architecture"] != arch:
+                raise AssertionError(f"train ({arch}, dual):\n{out}")
+        names = list(ARCHS) + [os.path.basename(demo.DEMO_DIR)]
+        out, ticks, launches, eval_s, tick_max, dones = eval_here(
+            [os.path.join(tmp.name, "models", a) for a in ARCHS]
+            + [demo.DEMO_DIR], ARCH_EVAL_GAMES)
+        wins, draws, ratings = check_eval(out, names, ARCH_EVAL_GAMES)
+    finally:
+        tmp.cleanup()
+    log(f"[arch] {card}: train --set architecture=... single_policy=false, "
+        f"{CLI_ENVS} x {CLI_HORIZON}, one iteration each, three processes "
+        f"at once: "
+        f"{ {a: round(t, 1) for a, t in train_s.items()} } s; eval of the "
+        f"three and the demo, {ARCH_EVAL_GAMES} games per pair, in "
+        f"{eval_s:.1f} s: wins {wins}, Elo {ratings}; {ticks} match ticks, "
+        f"one-tick launches {launches}; max |kernel - plain| over the "
+        f"{ticks} match ticks {tick_max} ({dones} dones)")
+    results["errs"]["step_arch_eval"] = tick_max
+    results.update(arch_errs=errs, arch_train_s=train_s,
+                   arch_eval_ticks=ticks, arch_eval_launches=launches,
+                   arch_eval_s=eval_s, arch_elo=ratings)
 
 
 THREEFRY_OPS = 79   # threefry2x32: key word 2 + 2 adds + 20 x (add, rotate,
@@ -1302,6 +1820,12 @@ def phase_times(results, card, baseline=None):
              ms=step_ms, plain_ms=step_plain_ms, bound_ms=sb, bound_by=sby,
              library_ms=None,
              dqn_launches=results["dqn_launches"],
+             dual_launches=results["dual_launches"],
+             dual_dqn_launches=results["dual_dqn_launches"],
+             demo_eval_launches=results["demo_eval_launches"],
+             demo_eval_ticks=results["demo_eval_ticks"],
+             arch_eval_launches=results["arch_eval_launches"],
+             arch_eval_ticks=results["arch_eval_ticks"],
              path="training iteration (StandaloneTrainer.train_iteration)",
              shape=f"{N_SLICE} games x 1 tick", wrapper_ms=wrap_ms,
              bytes_ms=sb_bytes, ops_ms=sb_ops),
@@ -1359,7 +1883,8 @@ def main():
     t0 = time.perf_counter()
     baseline = phase_build(results, card, opts.baseline)
     for phase in (phase_kernel_vs_plain, phase_selfplay, phase_train,
-                  phase_cli, phase_dqn, phase_engine):
+                  phase_cli, phase_demo, phase_dqn, phase_dual,
+                  phase_dual_dqn, phase_architectures, phase_engine):
         t = time.perf_counter()
         phase(results, card)
         log(f"[{phase.__name__}] done in {time.perf_counter() - t:.1f} s")
@@ -1372,7 +1897,8 @@ def main():
         json.dump(results, f, indent=1)
     log(f"train {results['train_sps']:.1f} env-steps/s (train_mfu "
         f"{results['train_mfu']:.5f}), DQN {results['dqn_sps']:.1f} "
-        f"env-steps/s, CLI train {results['cli_train_sps']:.1f}"
+        f"env-steps/s, dual PPO {results['dual_sps']:.1f} at {DUAL_ENVS} x "
+        f"{HORIZON}, dual DQN {results['dual_dqn_sps']:.1f}, CLI train {results['cli_train_sps']:.1f}"
         f" env-steps/s at {CLI_ENVS} x {CLI_HORIZON}, match "
         f"{results['match_sps']:.0f} env-steps/s, checkpoint save "
         f"{results['ckpt_save_ms']:.1f} ms / restore "

@@ -13,13 +13,17 @@ run's checkpoint comes across with tools/torch_import_flax_checkpoint.py.
 
 ``train`` runs SVENton-PPO (with league-pool opponents, ``--pool-seed``
 and reward shapers from the settings) and SVENton-DQN (``--presets default
-sventon sventon_dqn ...``); ``eval`` mixes PPO and DQN checkpoints.
+sventon sventon_dqn ...``), each also as dual-policy training (``--set
+single_policy=false``: two policies against each other, checkpoints hold
+policy 0, as the JAX CLI's; ``--resume``, ``--init-from`` and
+``--pool-seed`` are refused there), with any of the four architectures
+(``--set architecture=silver|vanilla|keyboard|dreamer``); ``eval`` mixes
+PPO and DQN checkpoints of any architecture.
 
 Not ported yet, each exits with a message naming its ROADMAP item:
 ``train --distributed/--multihost`` and the verbs ``kv``, ``worker``,
-``trainer``, ``up`` (14); the flavours ``sixten`` and ``sherlock`` and
-dual-policy training, ``single_policy=False`` (11, 13); ``play`` (15);
-``bench`` (10).
+``trainer``, ``up`` (14); the flavours ``sixten`` and ``sherlock`` (11,
+13); ``play`` (15); ``bench`` (10).
 """
 from __future__ import annotations
 
@@ -119,16 +123,27 @@ def cmd_train(args):
     _train_one(_load_cfg(args), args)
 
 
-def _check_trainable(cfg):
-    """What the port's trainers run: single-policy PPO and DQN."""
+def _check_trainable(cfg, args):
+    """What the port's trainers run: PPO and DQN, single- or
+    dual-policy; a dual run has no resume, warm start or seeded pool."""
     if cfg.flavour in ("sixten", "sherlock"):
         raise SystemExit(f"flavour {cfg.flavour!r} waits for ROADMAP 13 "
                          "(and its placement masks, ROADMAP 11)")
     if cfg.flavour not in ("ppo", "dqn"):
         raise SystemExit(f"unknown flavour {cfg.flavour!r}")
-    if not cfg.ppo.single_policy:
-        raise SystemExit("single_policy=False (dual-policy training) waits "
-                         "for ROADMAP 13")
+    if cfg.ppo.single_policy:
+        return
+    if args.resume:
+        raise SystemExit("--resume supports the single-state trainers "
+                         "(ppo/dqn); dual-policy checkpoints persist "
+                         "policy 0 only")
+    if args.init_from:
+        raise SystemExit("--init-from: a dual-policy run starts both "
+                         "policies fresh; a checkpoint holds one policy "
+                         "and cannot warm-start two")
+    if args.pool_seed:
+        raise SystemExit("--pool-seed requires pool_prob > 0, which "
+                         "dual-policy training does not have")
 
 
 def _make_shaper(cfg):
@@ -172,6 +187,25 @@ def _make_trainer(cfg, args):
     """The standalone trainer of ``cfg``'s flavour on ``args.device``."""
     from drl_tetris_tpu_torch.runtime import standalone as S
     n_envs = args.n_envs or cfg.n_envs
+    s = cfg.settings
+    if not cfg.ppo.single_policy:
+        # two policies against each other (worker.py:157-192), gated by
+        # their win rate
+        gate = dict(winrate_lr=s.get("winrate_learningrate", 0.02),
+                    winrate_tolerance=s.get("winrate_tolerance", 0.1))
+        if cfg.flavour == "dqn":
+            return S.DualPolicyDQNTrainer(S.DualPolicyDQNConfig(
+                env=cfg.env, model=cfg.model, dqn=cfg.dqn, replay=cfg.replay,
+                n_envs=n_envs, horizon=args.horizon,
+                train_distribution=cfg.train_distribution, seed=args.seed,
+                epsilon=cfg.epsilon,
+                action_temperature=cfg.action_temperature,
+                tau_learning_rate=cfg.tau_learning_rate, **gate),
+                device=args.device)
+        return S.DualPolicyTrainer(S.DualPolicyConfig(
+            env=cfg.env, model=cfg.model, ppo=cfg.ppo, n_envs=n_envs,
+            horizon=args.horizon, seed=args.seed, **gate),
+            device=args.device)
     if cfg.flavour == "dqn":
         scfg = S.StandaloneDQNConfig(
             env=cfg.env, model=cfg.model, dqn=cfg.dqn, replay=cfg.replay,
@@ -180,7 +214,6 @@ def _make_trainer(cfg, args):
             epsilon=cfg.epsilon, action_temperature=cfg.action_temperature,
             tau_learning_rate=cfg.tau_learning_rate)
         return S.StandaloneDQNTrainer(scfg, device=args.device)
-    s = cfg.settings
     scfg = S.StandaloneConfig(
         env=cfg.env, model=cfg.model, ppo=cfg.ppo, n_envs=n_envs,
         horizon=args.horizon, seed=args.seed,
@@ -200,7 +233,7 @@ def _train_one(cfg, args):
     from drl_tetris_tpu_torch.runtime.evaluate import EvalAgent
     from drl_tetris_tpu_torch.utils.metrics import MetricsWriter, timekeeper
 
-    _check_trainable(cfg)
+    _check_trainable(cfg, args)
     ckpt_dir = os.path.join(args.data_dir, "models", cfg.run_id)
     metrics_dir = os.path.join(args.data_dir, "summaries")
     if args.pool_seed and (cfg.flavour != "ppo" or float(

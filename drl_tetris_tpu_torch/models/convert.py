@@ -3,8 +3,8 @@
 ``params_from_flax`` takes the JAX package's PPONet or QNet params as a
 nested dict of numpy arrays (what ``drl_tetris_tpu.runtime.checkpoint
 .restore_raw`` returns under 'params'; no JAX is needed to convert) and
-returns a ``state_dict`` for ``PPONet`` or ``QNet`` (both wrap the same
-SventonNet trunk, so their trees and names are the same);
+returns a ``state_dict`` for ``PPONet`` or ``QNet`` (both wrap the trunk
+that the architecture names, so their trees and names are the same);
 ``params_to_flax`` is its inverse.  ``ppo_state_from_flax`` and
 ``ppo_state_to_flax`` carry a whole JAX ``PPOState`` (params, optax Adam
 state, compressors, update count; with trainer-computed targets the
@@ -20,22 +20,32 @@ checkpoint.
 
 * Conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in);
 * LayerNorm scale/bias -> weight/bias;
-* module names: SventonNet_0/ResidualBlock_{0,1} -> trunk.vis_tower.{0,1},
-  ResidualBlock_{2,3} -> trunk.join_tower.{0,1}, ResidualBlock_4 ->
-  trunk.adv_tower, KeyboardConv_0 -> trunk.kbd, ResidualBlock_5 ->
-  trunk.value_tower (flax numbers modules in creation order);
-  Conv_i -> convs.i, LayerNorm_0 -> norm.
+* module names, per trunk (flax numbers modules of one type in creation
+  order, so the numbers follow the JAX trunks' ``__call__``):
+  - SventonNet_0 ('silver', 'dreamer'): ResidualBlock_{0,1} ->
+    trunk.vis_tower.{0,1}, ResidualBlock_{2,3} -> trunk.join_tower.{0,1},
+    ResidualBlock_4 -> trunk.adv_tower, KeyboardConv_0 -> trunk.kbd
+    (Dense_0 -> trunk.a_dense for 'dreamer'), ResidualBlock_5 ->
+    trunk.value_tower; inside a block Conv_i -> convs.i, LayerNorm_0 ->
+    norm;
+  - ConvThenDense_0 ('vanilla') and ConvKeyboard_0 ('keyboard'):
+    Dense_{2i+j} -> trunk.vec_enc.i.j and Conv_{4i+j} -> trunk.vis_enc.i.j
+    for perspective i; then Dense_4, Dense_5 -> trunk.value_hidden,
+    trunk.value_out and the advantage head Dense_6 -> trunk.a_dense
+    ('vanilla'; Dense_4 without the value head), or Dense_6 ->
+    trunk.value_pieces and KeyboardConv_0 -> trunk.kbd ('keyboard').
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 _BLOCKS = {0: "vis_tower.0", 1: "vis_tower.1", 2: "join_tower.0",
            3: "join_tower.1", 4: "adv_tower", 5: "value_tower"}
+_TRUNKS = ("SventonNet_0", "ConvThenDense_0", "ConvKeyboard_0")
 
 
 def _flatten(tree, prefix=()):
@@ -46,42 +56,87 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _module_path(path) -> str:
-    parts = list(path)
-    if parts and parts[0] == "params":
-        parts = parts[1:]
-    if not parts or parts[0] != "SventonNet_0":
-        raise KeyError(f"not a SventonNet param: {'/'.join(path)}")
-    out = ["trunk"]
-    for name in parts[1:-1]:
-        m = re.fullmatch(r"ResidualBlock_(\d+)", name)
+def _dense_names(trunk: str, n_dense: int) -> Dict[str, str]:
+    """Dense_i -> port module under the trunk, for a trunk with
+    ``n_dense`` Dense modules."""
+    if trunk == "SventonNet_0":
+        return {"Dense_0": "a_dense"} if n_dense else {}
+    names = {f"Dense_{2 * i + j}": f"vec_enc.{i}.{j}"
+             for i in range(2) for j in range(2)}
+    tail = {("ConvThenDense_0", 5): ["a_dense"],
+            ("ConvThenDense_0", 7): ["value_hidden", "value_out", "a_dense"],
+            ("ConvKeyboard_0", 4): [],
+            ("ConvKeyboard_0", 6): ["value_hidden", "value_out"],
+            ("ConvKeyboard_0", 7): ["value_hidden", "value_out",
+                                    "value_pieces"]}.get((trunk, n_dense))
+    if tail is None:
+        raise KeyError(f"{trunk} with {n_dense} Dense modules")
+    names.update({f"Dense_{4 + k}": m for k, m in enumerate(tail)})
+    return names
+
+
+def _module_table(trunk: str, modules) -> Dict[Tuple[str, ...], str]:
+    """{flax module path under the trunk: port module path under
+    ``trunk.``} for a trunk whose top-level flax modules are ``modules``
+    (a residual block's inner modules are mapped by ``_port_module``)."""
+    table = {("KeyboardConv_0", "Conv_0"): "kbd.conv"}
+    n_dense = sum(m.startswith("Dense_") for m in modules)
+    table.update({(f, ): m for f, m in _dense_names(trunk, n_dense).items()})
+    if trunk == "SventonNet_0":
+        table.update({(f"ResidualBlock_{b}", ): name
+                      for b, name in _BLOCKS.items()})
+    else:
+        table.update({(f"Conv_{4 * i + j}", ): f"vis_enc.{i}.{j}"
+                      for i in range(2) for j in range(4)})
+    return table
+
+
+def _port_module(table, path: Tuple[str, ...]) -> str:
+    """The port module of a flax module path under the trunk."""
+    if path in table:
+        return table[path]
+    if len(path) == 2 and path[:1] in table:        # inside a block
+        m = re.fullmatch(r"Conv_(\d+)", path[1])
         if m:
-            out.append(_BLOCKS[int(m.group(1))])
-            continue
-        m = re.fullmatch(r"Conv_(\d+)", name)
-        if m:
-            out.append("conv" if out[-1] == "kbd" else f"convs.{m.group(1)}")
-            continue
-        if name == "KeyboardConv_0":
-            out.append("kbd")
-        elif name == "LayerNorm_0":
-            out.append("norm")
-        else:
-            raise KeyError(f"unmapped flax module {name}")
-    return ".".join(out)
+            return f"{table[path[:1]]}.convs.{m.group(1)}"
+        if path[1] == "LayerNorm_0":
+            return f"{table[path[:1]]}.norm"
+    raise KeyError(f"unmapped flax module {'/'.join(path)}")
+
+
+def _flax_module(table, module: str) -> Tuple[str, ...]:
+    """The inverse of ``_port_module``."""
+    inverse = {m: f for f, m in table.items()}
+    if module in inverse:
+        return inverse[module]
+    block, _, inner = module.rpartition(".")
+    m = re.fullmatch(r"(.+)\.convs", block)
+    if m and m.group(1) in inverse:
+        return inverse[m.group(1)] + (f"Conv_{inner}", )
+    if inner == "norm" and block in inverse:
+        return inverse[block] + ("LayerNorm_0", )
+    raise KeyError(f"unmapped PPONet module {module}")
 
 
 def params_from_flax(params) -> Dict[str, torch.Tensor]:
-    """Convert a flax PPONet param tree (nested dicts of arrays) to a
-    PPONet state_dict."""
+    """Convert a flax PPONet or QNet param tree (nested dicts of arrays,
+    with or without the top 'params' key) to the port net's
+    state_dict."""
+    tree = dict(params)
+    if "params" in tree:
+        tree = dict(tree["params"])
+    (trunk, body), = tree.items()
+    if trunk not in _TRUNKS:
+        raise KeyError(f"not a PPONet or QNet trunk: {trunk}")
+    table = _module_table(trunk, body)
     sd = {}
-    for path, value in _flatten(dict(params)):
+    for path, value in _flatten(dict(body)):
         a = np.asarray(value, dtype=np.float32)
         leaf = path[-1]
-        base = _module_path(path)
+        base = "trunk." + _port_module(table, path[:-1])
         if leaf == "kernel":
             a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-            sd[base + ".weight"] = torch.from_numpy(np.ascontiguousarray(a))
+            sd[base + ".weight"] = torch.from_numpy(np.array(a, order="C"))
         elif leaf == "scale":
             sd[base + ".weight"] = torch.from_numpy(a.copy())
         elif leaf == "bias":
@@ -91,54 +146,43 @@ def params_from_flax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
-_FLAX_BLOCKS = {v: f"ResidualBlock_{k}" for k, v in _BLOCKS.items()}
-
-
-def _flax_path(name: str):
-    """PPONet state_dict name -> the flax param path under 'params'."""
-    parts = name.split(".")
-    if parts[0] != "trunk":
-        raise KeyError(f"not a PPONet parameter: {name}")
-    out, i = ["SventonNet_0"], 1
-    while i < len(parts) - 1:
-        two = ".".join(parts[i:i + 2])
-        if two in _FLAX_BLOCKS:
-            out.append(_FLAX_BLOCKS[two])
-            i += 2
-            continue
-        if parts[i] in _FLAX_BLOCKS:
-            out.append(_FLAX_BLOCKS[parts[i]])
-        elif parts[i] == "kbd":
-            out.append("KeyboardConv_0")
-        elif parts[i] == "conv":
-            out.append("Conv_0")
-        elif parts[i] == "convs":
-            out.append(f"Conv_{parts[i + 1]}")
-            i += 1
-        elif parts[i] == "norm":
-            out.append("LayerNorm_0")
-        else:
-            raise KeyError(f"unmapped PPONet module in {name}")
-        i += 1
-    leaf = parts[-1]
-    if leaf == "bias":
-        return out + ["bias"]
-    if leaf == "weight":
-        return out + ["scale" if out[-1] == "LayerNorm_0" else "kernel"]
-    raise KeyError(f"unmapped PPONet parameter {name}")
+def _port_trunk(names) -> Tuple[str, Tuple[str, ...]]:
+    """(flax trunk name, its top-level flax modules) for a port
+    state_dict's parameter names."""
+    mods = {n.split(".")[1] for n in names}
+    if "vec_enc" in mods:
+        trunk = "ConvKeyboard_0" if "kbd" in mods else "ConvThenDense_0"
+        n_dense = 4 + sum(m in mods for m in ("value_hidden", "value_out",
+                                               "value_pieces", "a_dense"))
+    else:
+        trunk, n_dense = "SventonNet_0", int("a_dense" in mods)
+    return trunk, tuple(f"Dense_{i}" for i in range(n_dense))
 
 
 def params_to_flax(state_dict) -> Dict[str, Any]:
-    """A PPONet state_dict (tensors or arrays) as the flax param tree
-    ``{'params': {'SventonNet_0': ...}}`` of numpy float32 arrays: the
+    """A PPONet or QNet state_dict (tensors or arrays) as the flax param
+    tree ``{'params': {<trunk>_0: ...}}`` of numpy float32 arrays: the
     inverse of ``params_from_flax``."""
+    for name in state_dict:
+        if not name.startswith("trunk."):
+            raise KeyError(f"not a PPONet parameter: {name}")
+    trunk, modules = _port_trunk(state_dict)
+    table = _module_table(trunk, modules)
     tree: Dict[str, Any] = {}
     for name, value in state_dict.items():
         a = np.asarray(value.detach().cpu() if torch.is_tensor(value)
                        else value, dtype=np.float32)
-        path = _flax_path(name)
-        if path[-1] == "kernel":
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        module, leaf = name[len("trunk."):].rsplit(".", 1)
+        path = [trunk, *_flax_module(table, module)]
+        if leaf == "bias":
+            path.append("bias")
+        elif leaf == "weight":
+            path.append("scale" if path[-2] == "LayerNorm_0"
+                        else "kernel")
+            if path[-1] == "kernel":
+                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        else:
+            raise KeyError(f"unmapped PPONet parameter {name}")
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -1,5 +1,5 @@
-"""PPONet ('silver' SventonNet trunk, keyboard-conv policy head, per-piece
-tanh values) and QNet (the same trunk with the dueling Q head) as PyTorch
+"""PPONet (policy softmax, per-piece tanh values) and QNet (the dueling Q
+head) over the four trunks of the architecture registry, as PyTorch
 modules.
 
 Counterpart of ``drl_tetris_tpu/models/nets.py`` (reference: build_blocks.py,
@@ -14,8 +14,14 @@ run in bfloat16 with float32 parameters cast at each conv, as flax does
 (``promote_dtype``: input, kernel and bias in bf16, bias added after the
 conv), and the heads run in float32.  The cast is explicit; no autocast.
 
-Only the 'silver' architecture is ported; 'vanilla', 'keyboard' and
-'dreamer' wait for a later slice.
+The registry (``make_trunk``, network.py:25-32): 'silver' is SventonNet
+with the keyboard-conv head; 'dreamer' the same trunk with a dense action
+head over the flattened advantage stream; 'vanilla' ConvThenDense and
+'keyboard' ConvKeyboard, small conv encoders with dense heads, which run
+in float32 whatever ``compute_dtype`` says (their flax modules take no
+dtype).  The residual blocks accept a dropout rate and do not apply it:
+every path of the port (rollouts, updates, targets, evaluation) runs the
+nets deterministically, as the JAX package's trainers do.
 """
 from __future__ import annotations
 
@@ -29,14 +35,14 @@ import torch.nn.functional as F
 
 from drl_tetris_tpu_torch import resolve_device
 
-ARCHITECTURES = ("silver",)
+ARCHITECTURES = ("silver", "vanilla", "keyboard", "dreamer")
 VEC_DIM = 12          # per-perspective scalar observation (env/observations)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """resblock_kbd settings (experiments/sventon_ppo.py:46-58 defaults),
-    the JAX package's ModelConfig."""
+    the JAX package's ModelConfig; ``architecture`` picks the trunk."""
     compute_dtype: str = "bfloat16"
     architecture: str = "silver"
     n_rotations: int = 4
@@ -54,8 +60,9 @@ class ModelConfig:
 
     def __post_init__(self):
         if self.architecture not in ARCHITECTURES:
-            raise ValueError(f"architecture {self.architecture!r} is not "
-                             f"ported yet; expected one of {ARCHITECTURES}")
+            raise ValueError(
+                f"unknown architecture {self.architecture!r}; "
+                f"expected one of {ARCHITECTURES} (network.py:25-32)")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -131,8 +138,34 @@ def glorot_uniform(shape, generator: torch.Generator) -> torch.Tensor:
     return (2.0 * u - 1.0) * limit
 
 
+def lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax's lecun_normal (the default kernel init of nn.Dense and
+    nn.Conv) for an OIHW or (out, in) kernel: a normal truncated at two
+    standard deviations, scaled to variance 1 / fan_in."""
+    fan_in = shape[1] * math.prod(shape[2:])
+    t = torch.empty(shape, device=generator.device)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    # the standard deviation of a unit normal truncated to [-2, 2]
+    return t * (math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
 def _fill(param: torch.Tensor, values: torch.Tensor):
     param.copy_(values.to(param.device))
+
+
+@torch.no_grad()
+def _init_layer(layer: nn.Module, generator: torch.Generator,
+                kernel=lecun_normal):
+    """A Linear or Conv2d as flax initialises it: ``kernel`` (lecun_normal
+    by default) and a zero bias."""
+    _fill(layer.weight, kernel(layer.weight.shape, generator))
+    layer.bias.zero_()
+
+
+def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, H*W*C) in flax's (h, w, c) order, so that a
+    dense layer's rows line up with the JAX package's."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
 def action_softmax(x: torch.Tensor) -> torch.Tensor:
@@ -184,8 +217,10 @@ def q_to_v(q: torch.Tensor, piece_mask=None) -> torch.Tensor:
 class ResidualBlock(nn.Module):
     """build_blocks.py:8-64, layer for layer, NCHW.  Layer i: conv (same
     padding) -> peephole join with the layer input -> [LayerNorm on a
-    truncate_add output layer] -> activation -> [avg-pool, window clamped
-    to the map size]."""
+    truncate_add output layer] -> activation -> [spatial dropout] ->
+    [avg-pool, window clamped to the map size].  The dropout rate is
+    checked and not applied: every path runs the block deterministically,
+    as the JAX package's trainers run flax's ``Dropout``."""
 
     def __init__(self, in_channels: int, n_layers: int = 3,
                  n_filters: int = 128, filter_size=(3, 3),
@@ -196,9 +231,8 @@ class ResidualBlock(nn.Module):
                  output_layer: bool = False, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if dropout:
-            raise NotImplementedError("dropout is not ported: the main "
-                                      "path trains without it")
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout rate {dropout} outside [0, 1)")
         self.peepholes, self.pools = peepholes, pools
         self.output_layer = output_layer
         self.pool_size = tuple(pool_size)
@@ -303,12 +337,17 @@ class SventonNet(nn.Module):
     """resblock_kbd (sventon_architectures.py:23-73): per-perspective
     visual towers, vector planes joined in, a second tower, the advantage
     tower with the keyboard head and (trainer side) the pooled value
-    tower.  Returns raw (V (B,1,1,P|1), A (B,R,W,P))."""
+    tower.  Returns raw (V (B,1,1,P|1), A (B,R,W,P)).
+
+    ``kbd_head=False`` is 'dreamer': a dense action head (glorot-uniform
+    kernel) over the flattened float32 advantage stream in place of the
+    keyboard conv (drl_tetris_tpu/models/nets.py:302-310)."""
 
     def __init__(self, cfg: ModelConfig, board=(22, 10),
-                 full_network: bool = True):
+                 full_network: bool = True, kbd_head: bool = True):
         super().__init__()
         self.cfg, self.full_network = cfg, full_network
+        self.kbd_head = kbd_head
         dt = cfg.torch_dtype
         tower = dict(n_layers=cfg.tower_layers, n_filters=cfg.tower_filters,
                      filter_size=(cfg.tower_filter_size,) * 2,
@@ -323,8 +362,16 @@ class SventonNet(nn.Module):
         self.adv_tower = ResidualBlock(
             join_channels(VEC_DIM, c_joined, "add"),
             output_activation=None, **tower)
-        self.kbd = KeyboardConv(self.adv_tower.out_channels, board[0] + 2,
-                                cfg.n_rotations, cfg.n_pieces)
+        c_adv = self.adv_tower.out_channels
+        h, w = board
+        if kbd_head:
+            self.kbd = KeyboardConv(c_adv, h + 2, cfg.n_rotations,
+                                    cfg.n_pieces)
+        else:
+            self.a_dense = nn.Linear((h + 2) * (w + 2) * c_adv,
+                                     cfg.n_rotations * w * cfg.n_pieces)
+        self.acting = ("vis_tower", "join_tower", "adv_tower",
+                       "kbd" if kbd_head else "a_dense")
         if full_network:
             self.value_tower = ResidualBlock(
                 2 * c_joined + 2 * c_vis, n_layers=cfg.val_layers,
@@ -338,6 +385,14 @@ class SventonNet(nn.Module):
         # leaves), and not in the state_dict; it moves with the module, so
         # the forward copies nothing from the host
         self.register_buffer("piece_mask", cfg.piece_mask, persistent=False)
+
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator):
+        for m in self.modules():
+            if isinstance(m, (ResidualBlock, KeyboardConv)):
+                m.init_flax_(generator)
+        if not self.kbd_head:
+            _init_layer(self.a_dense, generator, glorot_uniform)
 
     def forward(self, vec, vis):
         c = self.cfg
@@ -354,7 +409,12 @@ class SventonNet(nn.Module):
         joined = [t(torch.cat([vp, hv], dim=1))
                   for t, vp, hv in zip(self.join_tower, vecp, hidden)]
         a = self.adv_tower(peephole_join(joined[0], vecp[1], "add", dim=1))
-        raw_a = self.kbd(a.float())
+        a = a.float()
+        if self.kbd_head:
+            raw_a = self.kbd(a)
+        else:
+            raw_a = self.a_dense(_flatten_nhwc(a)).reshape(
+                a.shape[0], c.n_rotations, w - 2, c.n_pieces)
         if not self.full_network:
             return torch.zeros(vec[0].shape[0], 1, 1, 1,
                                device=raw_a.device), raw_a
@@ -371,28 +431,204 @@ class SventonNet(nn.Module):
         return v[:, None, None, :], raw_a
 
 
+# the legacy trunks' widths, fixed as in JAX (its module fields' defaults,
+# which nothing there overrides)
+VEC_HIDDEN, VEC_OUT = 256, 32      # dense encoder of the 12 scalars
+CONV_FILTERS = (16, 32, 32, 4)     # the field's convs: 7x7, then 3x3
+VALUE_HIDDEN = 256
+N_TRANSLATIONS = 10                # 'vanilla''s action plane columns
+
+
+class _DenseEncoders(nn.Module):
+    """What ConvThenDense and ConvKeyboard share: per perspective a
+    two-layer dense encoder of the 12 scalars and a four-conv encoder of
+    the padded field (CONV_FILTERS, kernels 7x7 then 3x3, same padding,
+    elu, ``conv_in`` input channels each), and the trunk's dense layers,
+    all float32 with flax's default initialisers (lecun-normal kernels,
+    zero biases)."""
+
+    def __init__(self, conv_in):
+        super().__init__()
+        self.vec_enc = nn.ModuleList(
+            [nn.ModuleList([nn.Linear(VEC_DIM, VEC_HIDDEN),
+                            nn.Linear(VEC_HIDDEN, VEC_OUT)])
+             for _ in range(2)])
+        self.vis_enc = nn.ModuleList(
+            [nn.ModuleList([nn.Conv2d(ci, co, 7 if i == 0 else 3,
+                                      padding=3 if i == 0 else 1)
+                            for i, (ci, co) in enumerate(zip(conv_in,
+                                                             CONV_FILTERS))])
+             for _ in range(2)])
+
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator):
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                _init_layer(m, generator)
+
+
+class ConvThenDense(_DenseEncoders):
+    """'vanilla', the legacy convthendense (sventon_architectures.py:
+    95-118, repaired as in drl_tetris_tpu/models/nets.py:341-385): dense
+    vector encoders (relu), conv encoders with a 2x2 max-pool after the
+    first conv, everything flattened and joined; a dense value head (tanh,
+    piece offsets centred) and a dense (R * 10 * P) advantage head.  The
+    action plane has N_TRANSLATIONS = 10 columns whatever the board's
+    width, as in JAX."""
+
+    def __init__(self, cfg: ModelConfig, board=(22, 10),
+                 full_network: bool = True):
+        super().__init__((1,) + CONV_FILTERS[:-1])
+        self.cfg, self.full_network = cfg, full_network
+        h, w = math.ceil((board[0] + 2) / 2), math.ceil((board[1] + 2) / 2)
+        n_flat = 2 * VEC_OUT + 2 * h * w * CONV_FILTERS[-1]
+        if full_network:
+            self.value_hidden = nn.Linear(n_flat, VALUE_HIDDEN)
+            self.value_out = nn.Linear(
+                VALUE_HIDDEN,
+                cfg.n_pieces + 1 if cfg.separate_piece_values else 1)
+        self.a_dense = nn.Linear(
+            n_flat, cfg.n_rotations * N_TRANSLATIONS * cfg.n_pieces)
+        self.acting = ("vec_enc", "vis_enc", "a_dense")
+
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator):
+        """The A head is glorot-uniform."""
+        super().init_flax_(generator)
+        _init_layer(self.a_dense, generator, glorot_uniform)
+
+    def forward(self, vec, vis):
+        c = self.cfg
+        hidden = [l1(F.relu(l0(v.float())))
+                  for (l0, l1), v in zip(self.vec_enc, vec)]
+        for convs, v in zip(self.vis_enc, vis):
+            x = apply_visual_pad(v.float()).permute(0, 3, 1, 2)
+            for i, conv in enumerate(convs):
+                x = F.elu(conv(x))
+                if i == 0:          # flax's SAME max-pool: partial windows
+                    x = F.max_pool2d(x, 2, 2, ceil_mode=True)
+            hidden.append(_flatten_nhwc(x))
+        x = torch.cat(hidden, dim=-1)
+        if self.full_network:
+            v = torch.tanh(self.value_out(F.elu(self.value_hidden(x))))
+        else:
+            v = torch.zeros(x.shape[0], 1, device=x.device)
+        raw_v = v.reshape(v.shape[0], 1, 1, -1)
+        if raw_v.shape[-1] > 1:
+            base, offs = raw_v[..., :1], raw_v[..., 1:]
+            raw_v = base + (offs - offs.mean(dim=3, keepdim=True))
+        raw_a = self.a_dense(x).reshape(-1, c.n_rotations, N_TRANSLATIONS,
+                                        c.n_pieces)
+        return raw_v, raw_a
+
+
+def advantage_activation_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """network_utils.advantage_activation_sqrt: sign-preserving sqrt."""
+    return torch.sign(x) * torch.sqrt(torch.abs(x) + 1e-12)
+
+
+class ConvKeyboard(_DenseEncoders):
+    """'keyboard', the legacy convkeyboard (sventon_architectures.py:75-93,
+    repaired as in drl_tetris_tpu/models/nets.py:393-447): dense vector
+    encoders (elu, tanh out), conv encoders whose first three layers
+    concatenate their input (peepholes) with a (2, 1) max-pool after the
+    third, a keyboard-conv action head on my encoding, and a dense value
+    head (tanh value plus centred, sqrt-activated piece offsets)."""
+
+    PEEPHOLE_LAYERS = (0, 1, 2)
+    POOL_AFTER = 2
+
+    def __init__(self, cfg: ModelConfig, board=(22, 10),
+                 full_network: bool = True):
+        c, conv_in = 1, []
+        for i, f in enumerate(CONV_FILTERS):
+            conv_in.append(c)
+            c = c + f if i in self.PEEPHOLE_LAYERS else f
+        super().__init__(conv_in)
+        self.cfg, self.full_network = cfg, full_network
+        h, w = math.ceil((board[0] + 2) / 2), board[1] + 2
+        self.kbd = KeyboardConv(c, h, cfg.n_rotations, cfg.n_pieces)
+        n_flat = 2 * VEC_OUT + 2 * h * w * c
+        if full_network:
+            self.value_hidden = nn.Linear(n_flat, VALUE_HIDDEN)
+            self.value_out = nn.Linear(VALUE_HIDDEN, 1)
+            if cfg.separate_piece_values:
+                self.value_pieces = nn.Linear(VALUE_HIDDEN, 7)
+        self.acting = ("vec_enc", "vis_enc", "kbd")
+
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator):
+        super().init_flax_(generator)
+        self.kbd.init_flax_(generator)
+
+    def forward(self, vec, vis):
+        hidden = [torch.tanh(l1(F.elu(l0(v.float()))))
+                  for (l0, l1), v in zip(self.vec_enc, vec)]
+        encoded = []
+        for convs, v in zip(self.vis_enc, vis):
+            x = apply_visual_pad(v.float()).permute(0, 3, 1, 2)
+            for i, conv in enumerate(convs):
+                y = F.elu(conv(x))
+                x = torch.cat([x, y], dim=1) if i in self.PEEPHOLE_LAYERS \
+                    else y
+                if i == self.POOL_AFTER:
+                    x = F.max_pool2d(x, (2, 1), (2, 1), ceil_mode=True)
+            encoded.append(x)
+        raw_a = self.kbd(encoded[0])
+        x = torch.cat(hidden + [_flatten_nhwc(e) for e in encoded], dim=-1)
+        if self.full_network:
+            h = F.elu(self.value_hidden(x))
+            v = torch.tanh(self.value_out(h))
+            if self.cfg.separate_piece_values:
+                vp = self.value_pieces(h)
+                v = v + 0.5 * advantage_activation_sqrt(
+                    vp - vp.mean(dim=1, keepdim=True))
+        else:
+            v = torch.zeros(x.shape[0], 1, device=x.device)
+        return v.reshape(v.shape[0], 1, 1, -1), raw_a
+
+
+def make_trunk(cfg: ModelConfig, board=(22, 10),
+               full_network: bool = True) -> nn.Module:
+    """The architecture registry (network.py:25-32), resolved from
+    ``cfg.architecture``; unknown names raise when the ModelConfig is
+    made.  Each trunk returns raw (V (B,1,1,P|1), A (B,R,T,P)), and names
+    in ``acting`` the modules the worker-side net shares."""
+    if cfg.architecture == "silver":
+        return SventonNet(cfg, board, full_network)
+    if cfg.architecture == "dreamer":
+        return SventonNet(cfg, board, full_network, kbd_head=False)
+    if cfg.architecture == "vanilla":
+        return ConvThenDense(cfg, board, full_network)
+    if cfg.architecture == "keyboard":
+        return ConvKeyboard(cfg, board, full_network)
+    raise ValueError(cfg.architecture)
+
+
 class PPONet(nn.Module):
-    """ppo_nets' network function: pi = softmaxed keyboard head
-    (B, R, W, P), v = per-piece tanh values (B, P) (or (B, 1) zeros with
-    ``full_network=False``, the worker-side net).  The weights live on
-    ``device`` (default "cuda"; raises with no card)."""
+    """ppo_nets' network function: pi = the softmaxed action head
+    (B, R, T, P), v = per-piece tanh values (B, P) (or (B, 1) zeros with
+    ``full_network=False``, the worker-side net), over the trunk that
+    ``cfg.architecture`` names.  The weights live on ``device`` (default
+    "cuda"; raises with no card)."""
 
     def __init__(self, cfg: ModelConfig, board=(22, 10),
                  full_network: bool = True, device=None):
         super().__init__()
         self.cfg, self.board = cfg, tuple(board)
         self.full_network = full_network
-        self.trunk = SventonNet(cfg, board, full_network)
+        self.trunk = make_trunk(cfg, board, full_network)
+        self.register_buffer("piece_mask", cfg.piece_mask, persistent=False)
         self.to(resolve_device(device))
 
     def worker_view(self) -> "PPONet":
         """The worker-side net (``full_network=False``) holding this net's
-        trunk modules: the same parameter tensors, no value tower.  The
+        acting modules: the same parameter tensors, no value head.  The
         JAX package applies the full param dict to its partial net; the
         view needs no copy."""
         view = type(self)(self.cfg, self.board, full_network=False,
                           device=next(self.parameters()).device)
-        for name in ("vis_tower", "join_tower", "adv_tower", "kbd"):
+        for name in self.trunk.acting:
             setattr(view.trunk, name, getattr(self.trunk, name))
         return view
 
@@ -400,9 +636,7 @@ class PPONet(nn.Module):
         """Fresh weights with flax's initialisers, drawn from
         ``generator``: the distributions of the JAX package's
         ``net.init``, not its values."""
-        for m in self.modules():
-            if isinstance(m, (ResidualBlock, KeyboardConv)):
-                m.init_flax_(generator)
+        self.trunk.init_flax_(generator)
         return self
 
     def load_params_(self, params) -> "PPONet":
@@ -419,8 +653,8 @@ class PPONet(nn.Module):
 
 class QNet(PPONet):
     """prio_qnet's network function, dueling Q (qva_from_raw_streams,
-    network_utils.py:100-104) on the same trunk: A = tanh of the
-    mean-normalised keyboard head, Q = raw V + A (B, R, W, P), V =
+    network_utils.py:100-104) on the same trunks: A = tanh of the
+    mean-normalised action head, Q = raw V + A (B, R, T, P), V =
     ``q_to_v(Q)`` (B, 1).  Returns (Q, V, A).  The parameters and their
     names are PPONet's, so ``init_flax_``, ``load_params_`` and the flax
     converter serve both."""
@@ -433,10 +667,9 @@ class QNet(PPONet):
 
     def forward(self, vec, vis):
         raw_v, raw_a = self.trunk(vec, vis)
-        mask = self.trunk.piece_mask
         a = normalize_advantages(
-            raw_a, piece_mask=mask, mode=self.advantage_mode,
+            raw_a, piece_mask=self.piece_mask, mode=self.advantage_mode,
             separate_piece_values=self.cfg.separate_piece_values,
             activation=torch.tanh)
         q = raw_v + a
-        return q, q_to_v(q, piece_mask=mask), a
+        return q, q_to_v(q, piece_mask=self.piece_mask), a

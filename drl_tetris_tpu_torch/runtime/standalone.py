@@ -57,9 +57,16 @@ import numpy as np
 import torch
 
 from drl_tetris_tpu_torch import resolve_device
-from drl_tetris_tpu_torch.algos.dqn import DQNConfig, make_dqn_update
+from drl_tetris_tpu_torch.algos.dqn import (DQNConfig, DQNState,
+                                            make_dqn_update)
+from drl_tetris_tpu_torch.algos.dual import (WinRateTracker,
+                                             dual_policy_subsegment,
+                                             make_dual_rollout_fn,
+                                             merge_dual_transitions,
+                                             split_dual_segment)
 from drl_tetris_tpu_torch.algos.ppo import (CompressorState, PPOConfig,
-                                            frozen_copy, make_ppo_update,
+                                            PPOState, frozen_copy,
+                                            make_ppo_update,
                                             pool_segment_to_batch,
                                             segment_to_batch,
                                             segment_to_windows,
@@ -156,6 +163,34 @@ def load_adam_state(net: torch.nn.Module, opt: torch.optim.Adam,
                for k in ("exp_avg", "exp_avg_sq")}}
 
 
+def ppo_state_dict(st: PPOState) -> dict:
+    """A PPO learner's state as a nested dict of tensors under the net's
+    parameter names (the form of ``models/convert.ppo_state_from_flax``):
+    ``params``; ``adam`` (``adam_state_dict``); ``adv_comp``,
+    ``vloss_comp``; ``update_count``; with trainer-computed targets also
+    ``ref_params`` and ``ref_countdown``.  The tensors are the live ones,
+    not copies."""
+    out = {"params": st.net.state_dict(),
+           "adam": adam_state_dict(st.net, st.optimizer),
+           "adv_comp": st.adv_comp._asdict(),
+           "vloss_comp": st.vloss_comp._asdict(),
+           "update_count": int(st.update_count)}
+    if st.ref_net is not None:
+        out["ref_params"] = st.ref_net.state_dict()
+        out["ref_countdown"] = int(st.ref_countdown)
+    return out
+
+
+def dqn_state_dict(st: DQNState) -> dict:
+    """A DQN learner's state (the form of
+    ``models/convert.dqn_state_from_flax``): ``params``, ``ref_params``,
+    ``adam`` and ``update_count``; live tensors."""
+    return {"params": st.net.state_dict(),
+            "ref_params": st.ref_net.state_dict(),
+            "adam": adam_state_dict(st.net, st.optimizer),
+            "update_count": int(st.update_count)}
+
+
 @dataclasses.dataclass(frozen=True)
 class StandaloneConfig:
     env: EnvConfig = EnvConfig()
@@ -249,22 +284,8 @@ class StandaloneTrainer:
         self.phase_ms = {}
 
     def ppo_state_dict(self) -> dict:
-        """The learner's state as a nested dict of tensors under the net's
-        parameter names (the form of ``models/convert.ppo_state_from_flax``):
-        ``params``; ``adam`` (``adam_state_dict``); ``adv_comp``,
-        ``vloss_comp``; ``update_count``; with trainer-computed targets
-        also ``ref_params`` and ``ref_countdown``.  The tensors are the live
-        ones, not copies."""
-        st = self.state
-        out = {"params": self.net.state_dict(),
-               "adam": adam_state_dict(self.net, st.optimizer),
-               "adv_comp": st.adv_comp._asdict(),
-               "vloss_comp": st.vloss_comp._asdict(),
-               "update_count": int(st.update_count)}
-        if st.ref_net is not None:
-            out["ref_params"] = st.ref_net.state_dict()
-            out["ref_countdown"] = int(st.ref_countdown)
-        return out
+        """``ppo_state_dict(self.state)``."""
+        return ppo_state_dict(self.state)
 
     def load_ppo_state(self, sd: dict):
         """Set the learner's state from ``ppo_state_dict``'s form (tensors
@@ -413,6 +434,38 @@ class StandaloneTrainer:
         return self.stats
 
 
+class _DQNActing:
+    """What both DQN trainers share: epsilon and temperature at the
+    env-steps trained so far, adaptive_epsilon's trajectory-length EMA
+    (sherlock_agent.py:39, 173) and the replay's alpha and beta.  Needs
+    ``cfg`` (n_envs, epsilon, action_temperature, tau_learning_rate,
+    train_distribution, dqn), ``device`` and ``total_steps``."""
+
+    def _init_acting(self):
+        self._ep_len = torch.zeros(self.cfg.n_envs, dtype=torch.int32,
+                                   device=self.device)
+        self.avg_traj_len = 12.0      # sherlock_agent.py:39 init
+
+    def _hparams(self) -> HParams:
+        t = self.total_steps
+        return HParams(epsilon=param_eval(self.cfg.epsilon, t),
+                       temperature=param_eval(self.cfg.action_temperature, t),
+                       avg_traj_len=self.avg_traj_len)
+
+    def _track_traj_len(self, done: torch.Tensor):
+        """Fold a segment's (T, N) dones into the EMA (adaptive_epsilon
+        only)."""
+        if self.cfg.train_distribution == "adaptive_epsilon":
+            self._ep_len, self.avg_traj_len = _traj_len_ema(
+                done, self._ep_len, self.avg_traj_len,
+                self.cfg.tau_learning_rate)
+
+    def _alpha_beta(self):
+        t = self.total_steps
+        return (param_eval(self.cfg.dqn.alpha, t),
+                param_eval(self.cfg.dqn.beta, t))
+
+
 @dataclasses.dataclass(frozen=True)
 class StandaloneDQNConfig:
     env: EnvConfig = EnvConfig()
@@ -428,7 +481,7 @@ class StandaloneDQNConfig:
     seed: int = 0
 
 
-class StandaloneDQNTrainer:
+class StandaloneDQNTrainer(_DQNActing):
     """SVENton-DQN in one process: epsilon-greedy (or pareto) rollouts into
     the on-device prioritized replay, k-step lambda targets through the
     reference net, IS-weighted Q updates (sventon_agent_dqn_trainer.py).
@@ -459,25 +512,11 @@ class StandaloneDQNTrainer:
         self.total_steps = 0
         self.stats = {}
         self.phase_ms = {}
-        self._ep_len = torch.zeros(cfg.n_envs, dtype=torch.int32,
-                                   device=self.device)
-        self.avg_traj_len = 12.0      # sherlock_agent.py:39 init
-
-    def _hparams(self) -> HParams:
-        t = self.total_steps
-        return HParams(epsilon=param_eval(self.cfg.epsilon, t),
-                       temperature=param_eval(self.cfg.action_temperature, t),
-                       avg_traj_len=self.avg_traj_len)
+        self._init_acting()
 
     def dqn_state_dict(self) -> dict:
-        """The learner's state (the form of
-        ``models/convert.dqn_state_from_flax``): ``params``,
-        ``ref_params``, ``adam`` and ``update_count``; live tensors."""
-        st = self.state
-        return {"params": self.net.state_dict(),
-                "ref_params": st.ref_net.state_dict(),
-                "adam": adam_state_dict(self.net, st.optimizer),
-                "update_count": int(st.update_count)}
+        """``dqn_state_dict(self.state)``."""
+        return dqn_state_dict(self.state)
 
     def load_dqn_state(self, sd: dict):
         self.net.load_params_(sd["params"])
@@ -525,22 +564,228 @@ class StandaloneDQNTrainer:
             self.env_state, self.generator, gumbel, key=kroll,
             hp=self._hparams())
         clock.mark("rollout")
-        if cfg.train_distribution == "adaptive_epsilon":
-            self._ep_len, self.avg_traj_len = _traj_len_ema(
-                seg.done, self._ep_len, self.avg_traj_len,
-                cfg.tau_learning_rate)
+        self._track_traj_len(seg.done)
         replay_add_segment(cfg.replay, self.replay, seg, cfg.horizon)
         clock.mark("replay_add")
         self.total_steps += cfg.n_envs * cfg.horizon
         # the trainer waits for enough samples
         # (sventon_agent_dqn_trainer.py:22)
         if self.replay.size >= cfg.dqn.n_samples_each_update:
-            t = self.total_steps
             self.state, self.replay, stats = self.update(
-                self.state, self.replay, kupd,
-                param_eval(cfg.dqn.alpha, t), param_eval(cfg.dqn.beta, t),
+                self.state, self.replay, kupd, *self._alpha_beta(),
                 replay_gumbel, clock.mark)
             clock.mark("update")
             self.stats = fetch_stats(stats)       # the update's one sync
         self.phase_ms = clock.spans_ms()
         return self.stats
+
+
+@dataclasses.dataclass(frozen=True)
+class DualPolicyConfig:
+    env: EnvConfig = EnvConfig()
+    model: ModelConfig = ModelConfig()
+    ppo: PPOConfig = PPOConfig(single_policy=False)
+    n_envs: int = 30
+    horizon: int = 72
+    seed: int = 0
+    winrate_lr: float = 0.02        # presets.py:179
+    winrate_tolerance: float = 0.1  # presets.py:180
+
+
+def _dual_keys(seed: int, device):
+    """JAX's key chain of the dual trainers: ``PRNGKey(seed) -> split 4``
+    (key, k0, k1, kenv); k0 and k1 drew flax's initial weights there."""
+    key, _k0, _k1, kenv = rng.split(rng.prng_key(seed, device), 4)
+    return key, kenv
+
+
+class _DualTrainer:
+    """What both dual trainers share: the games, two nets of ``net_cls``
+    with flax's initialisers for policy 0 then policy 1 from one
+    ``torch.Generator`` seeded with ``seed``, the win-rate gate, the
+    device generator, JAX's key chain, and policy 0 as ``state`` and
+    ``net``."""
+
+    def _init_dual(self, cfg, device, net_cls):
+        if cfg.horizon % 2:
+            raise ValueError(f"the dual horizon {cfg.horizon} is odd")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        e = cfg.env.engine
+        self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        init = torch.Generator().manual_seed(cfg.seed)
+        self.nets = [net_cls(cfg.model, board=(e.height, e.width),
+                             device=self.device).init_flax_(init)
+                     for _ in range(2)]
+        self.winrate = WinRateTracker(cfg.winrate_lr, cfg.winrate_tolerance)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
+        self.key, kenv = _dual_keys(cfg.seed, self.device)
+        self.env_state = self.env.reset(kenv)
+        self.total_steps = 0
+        self.stats = {}
+        self.phase_ms = {}
+
+    @property
+    def state(self):
+        return self.states[0]
+
+    @property
+    def net(self):
+        return self.nets[0]
+
+    def _finish_iteration(self, stats: dict, clock: _PhaseClock) -> dict:
+        stats = fetch_stats(stats)                # the iteration's one sync
+        self.total_steps += self.cfg.n_envs * self.cfg.horizon
+        stats["winrate/policy_0"] = float(self.winrate.rate_0)
+        self.stats = stats
+        self.phase_ms = clock.spans_ms()
+        return stats
+
+
+class DualPolicyTrainer(_DualTrainer):
+    """Two PPO policies in one process, trained against each other
+    (single_policy=False; worker.py:157-192, sventon_agent_base.py:96-111).
+    Each iteration: one dual rollout (both nets act, one one-tick launch
+    per tick), the merge and split into one batch per policy with
+    unsigned-gamma GAE, and a PPO update of each policy that the win-rate
+    gate lets train.  Initial weights: flax's initialisers for policy 0
+    then policy 1 from one ``torch.Generator`` seeded with ``seed``; the
+    pi noise from a device generator or given (``gumbel``).
+
+    ``state``, ``net`` and ``state_dict()`` are policy 0 in the PPO
+    trainer's form, which the CLI saves and the league reads, as the JAX
+    CLI keeps policy 0 (its ``state`` property); there is no dual
+    resume."""
+
+    def __init__(self, cfg: DualPolicyConfig, device=None):
+        if cfg.ppo.single_policy:
+            raise ValueError("DualPolicyTrainer needs single_policy=False")
+        if not cfg.ppo.workers_computes_advantages:
+            raise ValueError("dual-policy training uses worker-side GAE "
+                             "(workers_computes_advantages=True)")
+        self._init_dual(cfg, device, PPONet)
+        self.rollout = make_dual_rollout_fn(self.env, self.nets, cfg.horizon)
+        init_opt, self.update = make_ppo_update(cfg.env.engine, self.nets[0],
+                                                cfg.ppo)
+        self.states = [init_opt(net) for net in self.nets]
+
+    def state_dict(self) -> dict:
+        """Policy 0's learner state, ``total_steps`` and the key: what
+        ``StandaloneTrainer.state_dict`` holds."""
+        return {**ppo_state_dict(self.states[0]),
+                "total_steps": int(self.total_steps), "key": self.key}
+
+    def train_iteration(self, gumbel: Optional[torch.Tensor] = None):
+        """One dual segment and an update of each policy the gate lets
+        train (``gumbel``: (horizon, 2, n_envs, 4 * width) pi noise).
+        Returns the stats as host floats (``policy_p/...`` and
+        ``winrate/policy_0``); ``phase_ms`` holds the rollout, split (merge
+        and GAE) and per-policy update times."""
+        cfg = self.cfg
+        self.key, _kroll, ku0, ku1 = rng.split(self.key, 4)
+        clock = _PhaseClock(self.device)
+        clock.mark("start")
+        self.env_state, seg, v_last = self.rollout(
+            self.env_state, self.generator, gumbel)
+        clock.mark("rollout")
+        self.winrate.update(self.env.get_winner(self.env_state))
+        b0, b1, _ = split_dual_segment(cfg.ppo, seg, v_last)
+        clock.mark("split")
+        stats = {}
+        for p, (batch, kupd) in enumerate(((b0, ku0), (b1, ku1))):
+            if not self.winrate.should_train(p):
+                continue
+            self.states[p], s = self.update(self.states[p], batch, kupd)
+            stats.update({f"policy_{p}/{k}": v for k, v in s.items()})
+            clock.mark(f"update_{p}")
+        return self._finish_iteration(stats, clock)
+
+
+@dataclasses.dataclass(frozen=True)
+class DualPolicyDQNConfig:
+    env: EnvConfig = EnvConfig()
+    model: ModelConfig = ModelConfig()
+    dqn: DQNConfig = DQNConfig()
+    replay: ReplayConfig = ReplayConfig()
+    n_envs: int = 80
+    horizon: int = 32             # ticks; each policy gets horizon / 2
+    train_distribution: str = "epsilon"
+    epsilon: Any = 0.05
+    action_temperature: Any = 1.0
+    tau_learning_rate: float = 0.01
+    seed: int = 0
+    winrate_lr: float = 0.02        # winrate_learningrate (presets.py:179)
+    winrate_tolerance: float = 0.1  # presets.py:180
+
+
+class DualPolicyDQNTrainer(_DQNActing, _DualTrainer):
+    """Dual-policy SVENton-DQN: two QNets trained against each other, one
+    on-device prioritized replay each (``horizon / 2`` rows per game and
+    iteration), the estimator at unsigned gamma
+    (``single_policy=False``) and the win-rate gate
+    (sventon_agent_dqn_trainer.py:16-18).  The epsilon draws follow JAX's
+    keys; pareto noise comes from a device generator or is given.
+    ``state``, ``net`` and ``state_dict()`` are policy 0 in the DQN
+    trainer's form; the replays are not saved."""
+
+    def __init__(self, cfg: DualPolicyDQNConfig, device=None):
+        est = dataclasses.replace(cfg.dqn.estimator, single_policy=False)
+        self.dqn_cfg = dataclasses.replace(cfg.dqn, estimator=est)
+        self._init_dual(cfg, device, QNet)
+        self.rollout = make_dual_rollout_fn(
+            self.env, self.nets, cfg.horizon,
+            distribution=cfg.train_distribution)
+        init_opt, self.update = make_dqn_update(
+            cfg.env.engine, self.nets[0], self.dqn_cfg, cfg.replay)
+        self.states = [init_opt(net) for net in self.nets]
+        self.replays = [replay_init(cfg.replay, self.device)
+                        for _ in range(2)]
+        self._init_acting()
+
+    def state_dict(self) -> dict:
+        """Policy 0's learner state, ``total_steps`` and the key."""
+        return {**dqn_state_dict(self.states[0]),
+                "total_steps": int(self.total_steps), "key": self.key}
+
+    def train_iteration(self, gumbel: Optional[torch.Tensor] = None,
+                        replay_gumbel=None):
+        """One dual segment into the two replays, then an update of each
+        policy whose replay holds ``n_samples_each_update`` rows and that
+        the gate lets train.  ``gumbel`` ((horizon, 2, n_envs, 4 * width))
+        replaces the rollout's pareto or pi noise, ``replay_gumbel`` (a
+        pair of (capacity,) tensors) the samples'.  Returns the stats
+        (``policy_p/...``, ``winrate/policy_0``); ``phase_ms`` holds the
+        rollout, replay add (merge, split and both adds) and per-policy
+        targets and update times."""
+        cfg = self.cfg
+        self.key, kroll, ku0, ku1 = rng.split(self.key, 4)
+        clock = _PhaseClock(self.device)
+        clock.mark("start")
+        self.env_state, seg, _ = self.rollout(
+            self.env_state, self.generator, gumbel, key=kroll,
+            hp=self._hparams())
+        clock.mark("rollout")
+        self.winrate.update(self.env.get_winner(self.env_state))
+        self._track_traj_len(seg.done)
+        merged = merge_dual_transitions(seg)
+        for p in (0, 1):
+            replay_add_segment(cfg.replay, self.replays[p],
+                               dual_policy_subsegment(merged, p),
+                               cfg.horizon // 2)
+        clock.mark("replay_add")
+        alpha, beta = self._alpha_beta()
+        stats = {}
+        for p, kupd in ((0, ku0), (1, ku1)):
+            if self.replays[p].size < cfg.dqn.n_samples_each_update:
+                continue
+            # win-rate gate: the policy that is ahead waits
+            if not self.winrate.should_train(p):
+                continue
+            self.states[p], self.replays[p], s = self.update(
+                self.states[p], self.replays[p], kupd, alpha, beta,
+                None if replay_gumbel is None else replay_gumbel[p],
+                lambda name, p=p: clock.mark(f"{name}_{p}"))
+            stats.update({f"policy_{p}/{k}": v for k, v in s.items()})
+            clock.mark(f"update_{p}")
+        return self._finish_iteration(stats, clock)

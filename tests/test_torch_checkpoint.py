@@ -18,6 +18,13 @@ and resume (runtime/standalone.py), the train-state converters
 * The bridge tool converts data/demo_weights; ``_load_agent`` rebuilds it
   from the side-file and its float32 forward matches the JAX agent's
   within 1e-4.
+* The committed port demo (data/demo_weights_torch): the bridge tool,
+  run again with ``--params-only --fixture``, writes a checkpoint with
+  the same ``state_checksum``, the same settings.json bytes and a fixture
+  whose inputs are equal and whose JAX outputs agree within 1e-6 (float32)
+  and 1e-3 (bfloat16; XLA:CPU may pick other kernels on another CPU);
+  the port's net on the CPU is within the fixture check's tolerances
+  (runtime/demo.py), and ``eval`` rebuilds the demo from its side-file.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
@@ -317,3 +324,44 @@ def test_bridge_tool_converts_demo_weights(tmp_path):
                         [torch.from_numpy(v) for v in viss])
     assert np.abs(np.asarray(jpi) - tpi.numpy()).max() < 1e-4
     assert np.abs(np.asarray(jv) - tv.numpy()).max() < 1e-4
+
+
+def test_committed_demo_regenerates(tmp_path):
+    from drl_tetris_tpu_torch.runtime import demo
+    from tools.torch_import_flax_checkpoint import convert, write_fixture
+
+    step = convert(DEMO_DIR, str(tmp_path), params_only=True)
+    assert step == ckpt.latest_step(demo.DEMO_DIR) == 6029312
+    committed = ckpt.restore_raw(demo.DEMO_DIR)
+    assert set(committed) == {"params"}
+    assert ckpt.state_checksum(committed) == ckpt.state_checksum(
+        ckpt.restore_raw(str(tmp_path)))
+    for d in (str(tmp_path), demo.DEMO_DIR):
+        assert open(os.path.join(d, "settings.json"), "rb").read() == open(
+            os.path.join(DEMO_DIR, "settings.json"), "rb").read()
+    write_fixture(DEMO_DIR, str(tmp_path), step)
+    got, want = demo.load_fixture(str(tmp_path)), demo.load_fixture()
+    assert set(got) == set(want)
+    for k in ("step", "vec", "vis"):
+        assert got[k].dtype == want[k].dtype and (got[k] == want[k]).all(), k
+    for k in ("pi", "v"):
+        assert np.abs(got[f"{k}_float32"] - want[f"{k}_float32"]).max() \
+            <= 1e-6, k
+        assert np.abs(got[f"{k}_bfloat16"] - want[f"{k}_bfloat16"]).max() \
+            <= 1e-3, k
+    assert want["vec"].shape == (16, 2, 12)
+    assert want["pi_float32"].shape == (16, 4, 10, 7)
+
+
+def test_port_demo_net_matches_the_fixture():
+    from drl_tetris_tpu_torch.cli.main import _load_agent
+    from drl_tetris_tpu_torch.config.presets import load
+    from drl_tetris_tpu_torch.runtime import demo
+
+    errs = demo.fixture_errors("cpu")
+    demo.check_fixture(errs)
+    assert errs["float32"]["pi"] < 1e-4 and errs["float32"]["v"] < 1e-4
+    agent, cfg = _load_agent(demo.DEMO_DIR, load(), device="cpu")
+    assert agent.name == "demo_weights_torch"
+    assert cfg.model.architecture == "silver"
+    assert sum(p.numel() for p in agent.net.parameters()) == 3_602_996

@@ -123,7 +123,7 @@ def test_print_config(session):
       "experiment_sixten"], "ROADMAP 13"),
     (["train", "--device", "cpu", "--presets", "default", "sherlock"],
      "ROADMAP 13"),
-    (["train", "--device", "cpu", "--set", "single_policy=false"],
+    (["train", "--device", "cpu", "--set", "flavour=sixten"],
      "ROADMAP 13"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
