@@ -13,11 +13,16 @@ points a user calls, and times them:
 2. kernel vs plain, every state leaf equal:
    - the T-tick entry with replayed actions (1024 games x 64 ticks),
    - the T-tick entry with in-kernel random actions (block_games 128),
-   - the one-tick entry over 64 ticks, with reward and done,
+   - the one-tick entry over 64 ticks, with reward and done (the plain
+     chain runs once: the T-tick entry is held against its last state),
    - both entries at the kernel's limits (height 32, width 25, garbage
      cap 64) from a start state with crowded garbage FIFOs, and at a
      ragged game count (1001 games: the last CUDA block of 4 games holds
      one, so 3 of its warps return early), with replayed actions;
+   - the one-tick entry's per-kind instantiation over T_KINDS ticks from
+     crowded boards: every game a placement, every game a pose lock, and
+     each game its own kind (1024 games), mixed kinds at the limits and
+     at the ragged count, dones on every path;
 3. the self-play path (the acting loop of training): make_rollout_fn with
    TetrisVectorEnv(EnvConfig(), 1024) and PPONet(ModelConfig()) at full
    width in bfloat16, weights drawn from a numpy seed, horizon 64.  The
@@ -119,14 +124,35 @@ points a user calls, and times them:
    32 for each (the three processes at once), then ``eval`` of the three
    and the demo agent (8 games a match), one one-tick launch per match
    tick, each equal to the plain version's;
-9. the engine path (the random-policy throughput run): the T-tick entry
+9. the placement agents: SIXten (phase_sixten) at the preset shapes of
+   ``--presets default sventon sventon_dqn experiment_sixten`` (the VNet
+   with the 'silver' towers and the 6 x 128 5 x 5 value tower, bf16; 16
+   games x horizon 32; 16,384 samples per update, minibatch 128, k 5),
+   top-drop iterations until the replay holds an update's samples, one
+   timed top-drop iteration with the first update, then one full-space
+   iteration on the same replay; Sherlock (phase_sherlock) at ``default
+   sventon sherlock``, 16 x 32, one timed iteration in each space after a
+   warm one.  Each timed iteration: exactly 32 launches of the per-kind
+   instantiation, a finite update that moved the net, every tick equal
+   to the plain version's; env-steps/s, phase_ms (masks, forward, tick,
+   replay or gae, update), the masks' ms per tick, the replay's bytes.
+   Then (phase_placement_eval) ``eval`` of the five kinds (phase_cli's
+   PPO run, the SIXten and Sherlock checkpoints of both spaces), 2 games
+   per pair, through the command line's entry point in this process: one
+   per-kind launch per match tick, each equal to the plain version's.
+   phase_cli also runs ``train`` for SIXten (full space, 512 samples per
+   update) and Sherlock (top-drop, a league round), and starts its
+   processes in three stages of concurrent processes (the first train of
+   every run; the two resumes; the two evals);
+10. the engine path (the random-policy throughput run): the T-tick entry
    at 4096 boards with in-kernel random actions;
-10. times: kernel, plain version and bound of each entry at the shape its
+11. times: kernel, plain version and bound of each entry at the shape its
    path gives it (the timed kernel and plain outputs are held equal too),
    the rollout's env-steps/s.  The bound is the larger of the bytes side
    (state read and written once over the memory rate) and the operations
    side (tick_int_ops over a derived int32 rate: SMs x 64 INT32 lanes x
-   the SM's maximum clock from nvidia-smi).  With ``--baseline``, an
+   the SM's maximum clock from nvidia-smi); the per-kind instantiation at
+   1024 games with mixed kinds.  With ``--baseline``, an
    earlier engine_tick.cu with the same C interface is built too and
    timed in turns with the current one (new, old, old, new) at the same
    shapes.
@@ -200,6 +226,12 @@ PLAIN_GAMES = 16384                 # games per step_plain call of a check
 ARCHS = ("vanilla", "keyboard", "dreamer")
 ARCH_BOARDS = 64                    # boards of the card-vs-CPU net checks
 ARCH_EVAL_GAMES = 16                # the architectures' eval, per pair
+SIXTEN_PRESETS = ("default", "sventon", "sventon_dqn", "experiment_sixten")
+SHERLOCK_PRESETS = ("default", "sventon", "sherlock")
+WM_ENVS, WM_HORIZON = 16, 32        # both flavours' preset shape
+WM_SEED = 19
+T_KINDS = 24                        # ticks of each per-kind comparison
+WM_EVAL_GAMES = 2                   # the five-kind eval, per pair
 # the DQN update on the card against the CPU, float32, on 256
 # samples of the replay (8 steps): targets relative to their largest
 # |value|, first-step gradients as the PPO check's, new priorities
@@ -298,7 +330,9 @@ def phase_build(results, card, baseline=None):
 def phase_kernel_vs_plain(results, card):
     """Both entries against the plain version on CUDA tensors."""
     from drl_tetris_tpu_torch.engine import cuda_tick
-    from drl_tetris_tpu_torch.engine.checks import (compare_entries, crowded,
+    from drl_tetris_tpu_torch.engine.checks import (KIND_MODES,
+                                                    compare_entries,
+                                                    compare_kinds, crowded,
                                                     max_abs_err,
                                                     replayed_actions)
     from drl_tetris_tpu_torch.engine.core import EngineConfig
@@ -335,10 +369,23 @@ def phase_kernel_vs_plain(results, card):
         compare_entries(cfg, start, ar, at)
     events["ragged"] = (n_done, played)
 
+    # the one-tick entry's per-kind instantiation: every game a placement,
+    # every game a pose lock, each game its own kind; then mixed kinds at
+    # the limits and at the ragged count; crowded boards, so rounds end
+    for tag, c, n, modes in (("", cfg, N_SLICE, KIND_MODES),
+                             ("_limits", lim, N_SLICE, ("mixed",)),
+                             ("_ragged", cfg, N_RAGGED, ("mixed",))):
+        start = crowded(c, TetrisVectorEnv(c, n, device=DEV).reset(14), 14)
+        for mode in modes:
+            errs[f"kinds_{mode}{tag}"], d = compare_kinds(c, start, T_KINDS,
+                                                          mode, 4)
+            events[f"kinds_{mode}{tag}"] = (d, d)
+
     cuda_tick.raise_if_overflowed(start.current_player.device)
     log(f"[kernel vs plain] {card}: max |kernel - plain| over every leaf: "
         f"{errs}; (dones of the one-tick entry, rounds finished by the "
-        f"T-tick entry): {events}")
+        f"T-tick entry; for the per-kind comparisons of {T_KINDS} ticks "
+        f"the dones twice): {events}")
     if any(v != 0.0 for v in errs.values()):
         raise AssertionError(f"kernel disagrees with the plain version: "
                              f"{errs}")
@@ -706,10 +753,14 @@ def finish_cli(started, label):
     return out, secs
 
 
-def run_cli(args, label):
-    """``python -m drl_tetris_tpu_torch ARGS`` on the card; returns
-    (stdout, seconds)."""
-    return finish_cli(start_cli(args), label)
+def finish_all(started):
+    """Wait for several ``start_cli`` processes at once, each in its own
+    thread: {label: (stdout, its own seconds)}.  Fails on any non-zero
+    exit."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(started)) as ex:
+        futures = {k: ex.submit(finish_cli, v, k) for k, v in started.items()}
+        return {k: f.result() for k, f in futures.items()}
 
 
 def eval_here(paths, games):
@@ -722,7 +773,7 @@ def eval_here(paths, games):
     from drl_tetris_tpu_torch.cli.main import main as cli_main
     from drl_tetris_tpu_torch.engine import cuda_tick
     out = io.StringIO()
-    with recorded_match_ticks() as ticks_in, \
+    with recorded_kernel_ticks() as ticks_in, \
             contextlib.redirect_stdout(out):
         for k in cuda_tick.LAUNCHES:
             cuda_tick.LAUNCHES[k] = 0
@@ -732,27 +783,38 @@ def eval_here(paths, games):
         secs = time.perf_counter() - t0
         launches = dict(cuda_tick.LAUNCHES)
     ticks = len(ticks_in)
-    if launches["step"] != ticks or launches["rollout"] != 0 or ticks == 0:
+    n_launched = launches["step"] + launches["step_kinds"]
+    if n_launched != ticks or launches["rollout"] != 0 or ticks == 0:
         raise AssertionError(f"eval: launches {launches} for {ticks} match "
                              f"ticks: the one-tick entry must carry each")
     err, dones = held_against_plain(ticks_in, "eval match ticks")
-    return out.getvalue(), ticks, launches["step"], secs, err, dones
+    return out.getvalue(), ticks, n_launched, secs, err, dones
 
 
 def held_against_plain(ticks_in, label):
-    """Each recorded tick ((cfg, state, r, t), (state', reward, done)) of
-    the one-tick entry against ``step_plain`` from the same state and
-    actions: returns (max |kernel - plain| over every leaf, reward and
-    done, the dones).  Fails unless that is 0.0 and some game finished.
-    A game's tick depends on that game alone, so the ticks go through
-    ``step_plain`` concatenated along the game axis, PLAIN_GAMES games a
-    call (the plain tick costs about the same at 8 games as at 4096)."""
+    """Each recorded tick ((cfg, state, r, t[, kind, y]), (state', reward,
+    done)) of the one-tick entry against ``step_plain`` from the same
+    state and actions: returns (max |kernel - plain| over every leaf,
+    reward and done, the dones).  Fails unless that is 0.0 and some game
+    finished.  A game's tick depends on that game alone, so the ticks go
+    through ``step_plain`` concatenated along the game axis, PLAIN_GAMES
+    games a call (the plain tick costs about the same at 8 games as at
+    4096); with any per-kind tick among them, the macro ticks join as
+    kind 0."""
     from drl_tetris_tpu_torch.engine.checks import tick_err
     from drl_tetris_tpu_torch.engine.core import tree_map
     from drl_tetris_tpu_torch.env.env import step_plain
     cfg = ticks_in[0][0][0]
     if any(inputs[0] != cfg for inputs, _ in ticks_in):
         raise AssertionError(f"{label}: the ticks ran two configurations")
+    kinds = any(len(i) > 4 and i[4] is not None for i, _ in ticks_in)
+    if kinds:
+        def with_kind(i):
+            if len(i) > 4 and i[4] is not None:
+                return i
+            z = torch.zeros_like(i[2], dtype=torch.int32)
+            return (*i[:4], z, z)
+        ticks_in = [(with_kind(i), o) for i, o in ticks_in]
 
     def cat(*xs):
         return torch.cat(xs)
@@ -765,7 +827,7 @@ def held_against_plain(ticks_in, label):
             end += 1
         group = ticks_in[start:end]
         inputs = [tree_map(cat, *[i[k] for i, _ in group])
-                  for k in (1, 2, 3)]
+                  for k in ((1, 2, 3, 4, 5) if kinds else (1, 2, 3))]
         out = [tree_map(cat, *[o[k] for _, o in group]) for k in (0, 1, 2)]
         err = max(err, tick_err(tuple(out), step_plain(cfg, *inputs)))
         dones += int(out[2].sum())
@@ -822,43 +884,25 @@ def score_table(text, names):
 
 
 @contextlib.contextmanager
-def recorded_match_ticks():
-    """Within the block, every env step of ``runtime/evaluate``'s matches
-    is recorded as ((cfg, state, r, t), (state', reward, done)) in the
-    list it yields."""
-    from drl_tetris_tpu_torch.runtime import evaluate
+def recorded_kernel_ticks():
+    """Within the block, every call of the one-tick entry's wrapper
+    (``cuda_tick.step``: env steps of every kind, from matches, trainers
+    and the command line's entry points run here) is recorded as ((cfg,
+    state, r, t, kind, y), (state', reward, done)) in the list it
+    yields."""
+    from drl_tetris_tpu_torch.engine import cuda_tick
     ticks_in = []
-    env_cls = evaluate.TetrisVectorEnv
+    step = cuda_tick.step
 
-    class Recorded(env_cls):
-        def step(self, state, rotations, translations):
-            out = super().step(state, rotations, translations)
-            ticks_in.append(((self.cfg, state, rotations, translations), out))
-            return out
-    evaluate.TetrisVectorEnv = Recorded
-    try:
-        yield ticks_in
-    finally:
-        evaluate.TetrisVectorEnv = env_cls
-
-
-@contextlib.contextmanager
-def recorded_steps(env):
-    """Within the block, every ``env.step`` of this env (a trainer's) is
-    recorded as ((cfg, state, r, t), (state', reward, done)) in the list
-    it yields."""
-    ticks_in = []
-    step = env.step
-
-    def recording(state, rotations, translations):
-        out = step(state, rotations, translations)
-        ticks_in.append(((env.cfg, state, rotations, translations), out))
+    def recording(cfg, state, r, t, kind=None, y=None):
+        out = step(cfg, state, r, t, kind, y)
+        ticks_in.append(((cfg, state, r, t, kind, y), out))
         return out
-    env.step = recording
+    cuda_tick.step = recording
     try:
         yield ticks_in
     finally:
-        del env.step
+        cuda_tick.step = step
 
 
 def phase_cli(results, card):
@@ -928,7 +972,42 @@ def phase_cli(results, card):
              str(CLI_ENVS), "--horizon", str(CLI_HORIZON), "--seed", "7",
              "--save-every", "1", "--league-every", "2", "--league-games",
              str(CLI_LEAGUE_GAMES)]
-    out, train_s = run_cli(train + ["--steps", str(2 * per_iter)], "train")
+    # the first processes of every run at once (one card, 8 cores): the
+    # PPO run, the DQN stack, league-pool PPO, SIXten and Sherlock
+    dqn_iter = CLI_ENVS * CLI_DQN_HORIZON
+    dqn_dir = os.path.join(d, "models", "dqn")
+    dqn_train = ["train", "--presets", *DQN_PRESETS, "--data-dir", d,
+                 "--run-id", "dqn", "--n-envs", str(CLI_ENVS), "--horizon",
+                 str(CLI_DQN_HORIZON), "--seed", "7", "--save-every", "1",
+                 "--league-every", "2", "--league-games",
+                 str(CLI_LEAGUE_GAMES)]
+    pool_dir = os.path.join(d, "models", "pool")
+    wm = ["--data-dir", d, "--n-envs", str(WM_ENVS), "--horizon",
+          str(WM_HORIZON), "--seed", "7", "--save-every", "1", "--steps",
+          str(2 * WM_ENVS * WM_HORIZON)]
+    started = {
+        "train": start_cli(train + ["--steps", str(2 * per_iter)]),
+        "train (dqn)": start_cli(dqn_train + ["--steps", str(2 * dqn_iter)]),
+        "train (pool)": start_cli(
+            ["train", "--presets", *CLI_PRESETS, "r5_learning", "--data-dir",
+             d, "--run-id", "pool", "--n-envs", str(CLI_ENVS), "--horizon",
+             str(CLI_HORIZON), "--seed", "7", "--save-every", "1",
+             "--steps", str(3 * per_iter), "--set", "pool_prob=1.0",
+             "pool_every=1", "pool_mode=pfsp",
+             "reward_shaper=linear_reshaping", "reward_shaper_param=0.5"]),
+        # the full placement space with an update in each iteration (the
+        # sample count cut from 16,384 to 512: phase_sixten runs the
+        # preset's)
+        "train (sixten)": start_cli(
+            ["train", "--presets", *SIXTEN_PRESETS, "--run-id", "sixten",
+             *wm, "--set", "sixten_action_space=full",
+             "n_samples_each_update=512"]),
+        "train (sherlock)": start_cli(
+            ["train", "--presets", *SHERLOCK_PRESETS, "--run-id",
+             "sherlock", *wm, "--league-every", "2", "--league-games", "2"]),
+    }
+    outs = finish_all(started)
+    out, train_s = outs["train"]
     sps = iteration_sps(out)
     if sorted(sps) != [per_iter, 2 * per_iter]:
         raise AssertionError(f"train printed the iterations {sorted(sps)}")
@@ -938,8 +1017,12 @@ def phase_cli(results, card):
     if [x["step"] for x in elo_lines] != [2 * per_iter] or \
             set(elo_lines[0]["ratings"]) != {"random", f"step_{2 * per_iter}"}:
         raise AssertionError(f"elo_history.jsonl after train: {elo_lines}")
-    out2, resume_s = run_cli(train + ["--steps", str(3 * per_iter),
-                                      "--resume"], "train --resume")
+    started = {"train --resume": start_cli(
+        train + ["--steps", str(3 * per_iter), "--resume"]),
+        "train --resume (dqn)": start_cli(
+            dqn_train + ["--steps", str(3 * dqn_iter), "--resume"])}
+    outs.update(finish_all(started))
+    out2, resume_s = outs["train --resume"]
     if f"[resume] restored {run_dir} @ step {2 * per_iter:,}" not in out2:
         raise AssertionError(f"train --resume did not restore:\n{out2}")
     if sorted(iteration_sps(out2)) != [3 * per_iter] or \
@@ -958,9 +1041,16 @@ def phase_cli(results, card):
         f"{elo_lines[0]['ratings']}; train --resume @ "
         f"{2 * per_iter} -> {3 * per_iter} steps in {resume_s:.1f} s")
 
-    # 3. eval of the run against random through the command line
-    out3, eval_s = run_cli(["eval", run_dir, "--games", str(CLI_EVAL_GAMES)],
-                           "eval")
+    # 3. eval of the run against random through the command line, and of
+    # the DQN run, the pool run and random, at once
+    names3 = ["dqn", "pool", "random"]
+    started = {"eval": start_cli(["eval", run_dir, "--games",
+                                  str(CLI_EVAL_GAMES)]),
+               "eval (dqn, pool)": start_cli(
+                   ["eval", dqn_dir, pool_dir, "random", "--games",
+                    str(CLI_EVAL_GAMES)])}
+    outs.update(finish_all(started))
+    out3, eval_s = outs["eval"]
     table, _, rest = out3.partition("Draws (games undecided at the tick "
                                     "limit):")
     draw_text, _, elo_text = rest.partition("Elo (Bradley-Terry MLE):")
@@ -981,22 +1071,12 @@ def phase_cli(results, card):
 
     # 3b. the DQN stack through train and train --resume; league-pool PPO
     # with the reward shaper; eval of the three
-    dqn_iter = CLI_ENVS * CLI_DQN_HORIZON
-    dqn_dir = os.path.join(d, "models", "dqn")
-    dqn_train = ["train", "--presets", *DQN_PRESETS, "--data-dir", d,
-                 "--run-id", "dqn", "--n-envs", str(CLI_ENVS), "--horizon",
-                 str(CLI_DQN_HORIZON), "--seed", "7", "--save-every", "1",
-                 "--league-every", "2", "--league-games",
-                 str(CLI_LEAGUE_GAMES)]
-    out4, dqn_s = run_cli(dqn_train + ["--steps", str(2 * dqn_iter)],
-                          "train (dqn)")
+    out4, dqn_s = outs["train (dqn)"]
     dqn_sps = iteration_sps(out4)
     if sorted(dqn_sps) != [dqn_iter, 2 * dqn_iter] or \
             "[league] step" not in out4:
         raise AssertionError(f"train (dqn) printed:\n{out4}")
-    out5, dqn_resume_s = run_cli(dqn_train + ["--steps", str(3 * dqn_iter),
-                                              "--resume"],
-                                 "train --resume (dqn)")
+    out5, dqn_resume_s = outs["train --resume (dqn)"]
     if f"[resume] restored {dqn_dir} @ step {2 * dqn_iter:,}" not in out5 \
             or ckpt.latest_step(dqn_dir) != 3 * dqn_iter:
         raise AssertionError(f"train --resume (dqn):\n{out5}")
@@ -1004,14 +1084,7 @@ def phase_cli(results, card):
     if raw["update_count"] != 3 or "ref_params" not in raw:
         raise AssertionError(f"the DQN run made {raw['update_count']} "
                              f"updates, not 3")
-    pool_dir = os.path.join(d, "models", "pool")
-    out6, pool_s = run_cli(
-        ["train", "--presets", *CLI_PRESETS, "r5_learning", "--data-dir", d,
-         "--run-id", "pool", "--n-envs", str(CLI_ENVS), "--horizon",
-         str(CLI_HORIZON), "--seed", "7", "--save-every", "1", "--steps",
-         str(3 * per_iter), "--set", "pool_prob=1.0", "pool_every=1",
-         "pool_mode=pfsp", "reward_shaper=linear_reshaping",
-         "reward_shaper_param=0.5"], "train (pool)")
+    _, pool_s = outs["train (pool)"]
     with open(os.path.join(d, "summaries", "pool.jsonl")) as f:
         pool_lines = [json.loads(x) for x in f]
     pool_wr = [x.get("pool/opponent_winrate_ema") for x in pool_lines]
@@ -1021,9 +1094,7 @@ def phase_cli(results, card):
         raise AssertionError(f"train (pool): win-rate EMAs {pool_wr}")
     if sorted(os.listdir(cuda_tick.BUILD_DIR)) != built:
         raise AssertionError("a CLI process rebuilt the kernel")
-    names3 = ["dqn", "pool", "random"]
-    out7, eval3_s = run_cli(["eval", dqn_dir, pool_dir, "random", "--games",
-                             str(CLI_EVAL_GAMES)], "eval (dqn, pool)")
+    out7, eval3_s = outs["eval (dqn, pool)"]
     table, _, rest = out7.partition("Draws (games undecided at the tick "
                                     "limit):")
     draw_text, _, elo_text = rest.partition("Elo (Bradley-Terry MLE):")
@@ -1050,6 +1121,27 @@ def phase_cli(results, card):
         f"EMAs {pool_wr[1:]}; eval dqn, pool, random ({CLI_EVAL_GAMES} "
         f"games per pair) in {eval3_s:.1f} s: wins {dict(cells3)}, draws "
         f"{draws3}, Elo {ratings3}")
+    # 3c. SIXten (full placement space) and Sherlock through train
+    wm_iter = WM_ENVS * WM_HORIZON
+    wm_log = {}
+    for run_id, label in (("sixten", "train (sixten)"),
+                          ("sherlock", "train (sherlock)")):
+        out_wm, secs = outs[label]
+        raw = ckpt.restore_raw(os.path.join(d, "models", run_id))
+        if sorted(iteration_sps(out_wm)) != [wm_iter, 2 * wm_iter] or \
+                int(raw["update_count"]) != 2:
+            raise AssertionError(f"{label}: update count "
+                                 f"{raw['update_count']}:\n{out_wm}")
+        wm_log[run_id] = (secs, iteration_sps(out_wm)[2 * wm_iter])
+    if "[league] step" not in outs["train (sherlock)"][0]:
+        raise AssertionError("train (sherlock) played no league round")
+    log(f"[cli] {card}: train (sixten, full space, 512 samples per "
+        f"update) and train (sherlock, top-drop, a league round) "
+        f"{WM_ENVS} x {WM_HORIZON}, 2 iterations each (an update each): "
+        + ", ".join(f"{k} {v[0]:.1f} s, the second iteration {v[1]:.1f} "
+                    f"env-steps/s as the CLI prints it"
+                    for k, v in wm_log.items()))
+    results.update(cli_wm=wm_log)
     results.update(cli_dqn_s=dqn_s, cli_dqn_resume_s=dqn_resume_s,
                    cli_dqn_sps=dqn_sps[2 * dqn_iter], cli_pool_s=pool_s,
                    cli_eval3_s=eval3_s, cli_eval3_elo=ratings3)
@@ -1063,7 +1155,7 @@ def phase_cli(results, card):
     # one warm match at the round robin's shapes (cuDNN, allocator)
     evaluate.play_match(tr.cfg.env, tuple(agents),
                         n_games=EVAL_GAMES // 2, seed=2)
-    with recorded_match_ticks() as ticks_in:
+    with recorded_kernel_ticks() as ticks_in:
         for k in cuda_tick.LAUNCHES:
             cuda_tick.LAUNCHES[k] = 0
         sync()
@@ -1339,17 +1431,14 @@ def phase_demo(results, card):
     the command line's entry point, DEMO_EVAL_GAMES games, one one-tick
     launch per match tick, each held against the plain version."""
     from drl_tetris_tpu_torch.runtime import demo
-    tmp = results.pop("_cli_tmp")
-    try:
-        errs = demo.fixture_errors(DEV)
-        demo.check_fixture(errs)
-        names = ["smoke", os.path.basename(demo.DEMO_DIR)]
-        out, ticks, launches, secs, tick_max, dones = eval_here(
-            [os.path.join(tmp.name, "models", "smoke"), demo.DEMO_DIR],
-            DEMO_EVAL_GAMES)
-        wins, draws, ratings = check_eval(out, names, DEMO_EVAL_GAMES)
-    finally:
-        tmp.cleanup()
+    tmp = results["_cli_tmp"]            # phase_placement_eval removes it
+    errs = demo.fixture_errors(DEV)
+    demo.check_fixture(errs)
+    names = ["smoke", os.path.basename(demo.DEMO_DIR)]
+    out, ticks, launches, secs, tick_max, dones = eval_here(
+        [os.path.join(tmp.name, "models", "smoke"), demo.DEMO_DIR],
+        DEMO_EVAL_GAMES)
+    wins, draws, ratings = check_eval(out, names, DEMO_EVAL_GAMES)
     log(f"[demo] {card}: the demo agent (step 6,029,312) on the card "
         f"against JAX's outputs on 16 positions: float32 pi "
         f"{errs['float32']['pi']:.3e}, v {errs['float32']['v']:.3e} "
@@ -1404,7 +1493,7 @@ def phase_dual(results, card):
     tr = DualPolicyTrainer(cfg, device=DEV)
     full = tr.update
     tr.update = warm_update(cfg.env.engine, tr.nets[0], ppo)
-    with recorded_steps(tr.env) as ticks_in:
+    with recorded_kernel_ticks() as ticks_in:
         t0 = time.perf_counter()
         tr.train_iteration()
         sync()
@@ -1496,7 +1585,7 @@ def phase_dual_dqn(results, card):
     for k in cuda_tick.LAUNCHES:
         cuda_tick.LAUNCHES[k] = 0
     sync()
-    with recorded_steps(tr.env) as ticks_in:
+    with recorded_kernel_ticks() as ticks_in:
         t0 = time.perf_counter()
         stats = tr.train_iteration()
         sync()
@@ -1631,8 +1720,8 @@ def phase_architectures(results, card):
              str(per_iter), "--set", f"architecture={arch}",
              "single_policy=false"]) for arch in ARCHS}
         train_s = {}
-        for arch, proc in started.items():
-            out, train_s[arch] = finish_cli(proc, f"train ({arch}, dual)")
+        for arch, (out, secs) in finish_all(started).items():
+            train_s[arch] = secs
             run_dir = os.path.join(tmp.name, "models", arch)
             if sorted(iteration_sps(out)) != [per_iter] or \
                     ckpt.latest_step(run_dir) != per_iter or \
@@ -1659,17 +1748,207 @@ def phase_architectures(results, card):
                    arch_eval_s=eval_s, arch_elo=ratings)
 
 
+def placement_iteration(tr, tag, card):
+    """One timed iteration of a SIXten or Sherlock trainer with every env
+    step recorded: exactly WM_HORIZON launches of the one-tick entry's
+    per-kind instantiation, every stat finite, the net moved, every tick
+    equal to the plain version's.  Returns (seconds, env-steps/s, stats,
+    max |kernel - plain|, dones)."""
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    before = [p.detach().clone() for p in tr.net.parameters()]
+    count = tr.state.update_count
+    with recorded_kernel_ticks() as ticks_in:
+        for k in cuda_tick.LAUNCHES:
+            cuda_tick.LAUNCHES[k] = 0
+        sync()
+        t0 = time.perf_counter()
+        stats = tr.train_iteration()
+        sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_tick.LAUNCHES)
+    if launches != {"step": 0, "step_kinds": WM_HORIZON, "rollout": 0}:
+        raise AssertionError(f"{tag}: launches {launches}: the per-kind "
+                             f"entry must carry each of {WM_HORIZON} ticks")
+    if tr.state.update_count != count + 1 or not stats or not all(
+            math.isfinite(float(v)) for v in stats.values()):
+        raise AssertionError(f"{tag}: no finite update: {stats}")
+    moved = max((p.detach() - b).abs().max().item()
+                for p, b in zip(tr.net.parameters(), before))
+    if not moved > 0:
+        raise AssertionError(f"{tag}: the update moved nothing")
+    err, dones = held_against_plain(ticks_in, f"{tag} ticks")
+    cuda_tick.raise_if_overflowed(torch.device(DEV))
+    return secs, WM_ENVS * WM_HORIZON / secs, stats, err, dones
+
+
+def wm_checkpoint(d, run_id, tr, cfg, space_key, space):
+    """Save a trainer as the command line does (state.pt beside its
+    settings), so that ``eval`` loads it with its kind."""
+    from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
+    path = os.path.join(d, run_id)
+    ckpt.save(path, tr.total_steps, tr.state_dict(),
+              settings=dict(cfg.settings, **{space_key: space}))
+    return path
+
+
+def phase_sixten(results, card):
+    """SIXten at the preset shapes (the VNet with the 'silver' towers and
+    the 6 x 128 5 x 5 value tower, bf16; 16 games x horizon 32; 16,384
+    samples per update in minibatches of 128; k 5): top-drop iterations
+    until the replay holds an update's samples, then one timed iteration
+    with the first update; then one full-space iteration from the same
+    replay, its games' boards crowded again so that rounds end within the
+    iteration (the cut: the full space does not fill its own replay).
+    Every tick of both timed iterations is held against the plain
+    version."""
+    from drl_tetris_tpu_torch.config import presets
+    from drl_tetris_tpu_torch.engine.checks import crowded
+    from drl_tetris_tpu_torch.runtime.standalone import (
+        StandaloneSIXtenConfig, StandaloneSIXtenTrainer)
+    cfg = presets.load(SIXTEN_PRESETS)
+
+    def trainer(space):
+        return StandaloneSIXtenTrainer(StandaloneSIXtenConfig(
+            env=cfg.env, model=cfg.model, replay=cfg.replay, n_envs=WM_ENVS,
+            horizon=WM_HORIZON, train_distribution=cfg.train_distribution,
+            seed=WM_SEED, epsilon=cfg.epsilon,
+            action_temperature=cfg.action_temperature,
+            tau_learning_rate=cfg.tau_learning_rate, action_space=space),
+            sixten_cfg=cfg.sixten, device=DEV)
+    n = cfg.sixten.n_samples_each_update
+    per_iter = WM_ENVS * WM_HORIZON
+    top = trainer("top_drop")
+    top.env_state = crowded(cfg.env, top.env_state, WM_SEED)
+    sync()
+    t0 = time.perf_counter()
+    warm = 0
+    while top.replay.size + per_iter < n:
+        top.train_iteration()
+        warm += 1
+    sync()
+    warm_s = time.perf_counter() - t0
+    out = {}
+    out["top_drop"] = placement_iteration(top, "sixten top-drop", card)
+    phases = {"top_drop": dict(top.phase_ms)}
+    full = trainer("full")
+    full.replay, full.total_steps = top.replay, top.total_steps
+    full.env_state = crowded(cfg.env, top.env_state, WM_SEED + 2)
+    out["full"] = placement_iteration(full, "sixten full", card)
+    phases["full"] = dict(full.phase_ms)
+    for space, (secs, sps, stats, err, dones) in out.items():
+        ph = phases[space]
+        log(f"[sixten] {card}: {space}, {WM_ENVS} games x {WM_HORIZON} "
+            f"ticks and an update of {n} samples ({n // cfg.sixten.minibatch_size} "
+            f"Adam steps) in {secs:.2f} s = {sps:.1f} env-steps/s; "
+            f"phase_ms {ph}; masks {ph['masks'] / WM_HORIZON:.2f} ms per "
+            f"tick; max |kernel - plain| over the {WM_HORIZON} ticks {err} "
+            f"({dones} dones); stats {stats}")
+        results["errs"][f"kinds_sixten_{space}"] = err
+    log(f"[sixten] {card}: {warm} top-drop iterations before the first "
+        f"update in {warm_s:.1f} s; the replay {cfg.replay.capacity} "
+        f"rows, {top.replay.nbytes()} bytes on the card")
+    import tempfile
+    results["_wm_tmp"] = tempfile.TemporaryDirectory(prefix="chip_smoke_wm-")
+    d = results["_wm_tmp"].name
+    results["_wm_ckpts"] = [
+        wm_checkpoint(d, "sixten", top, cfg, "sixten_action_space",
+                      "top_drop"),
+        wm_checkpoint(d, "sixten_full", full, cfg, "sixten_action_space",
+                      "full")]
+    results.update(sixten_warm_iters=warm, sixten_warm_s=warm_s,
+                   sixten_replay_bytes=top.replay.nbytes(),
+                   sixten={k: dict(s=v[0], sps=v[1], phase_ms=phases[k])
+                           for k, v in out.items()},
+                   sixten_launches=2 * WM_HORIZON)
+
+
+def phase_sherlock(results, card):
+    """Sherlock at the preset shapes (SherlockNet: the 'silver' trunk and
+    the phi head, bf16 trunk; 16 games x horizon 32, minibatch 32, 3
+    epochs): a warm top-drop iteration, then one timed iteration in each
+    space (from crowded boards, so that rounds end within it); every tick
+    held against the plain version."""
+    from drl_tetris_tpu_torch.config import presets
+    from drl_tetris_tpu_torch.engine.checks import crowded
+    from drl_tetris_tpu_torch.runtime.standalone import (
+        SherlockTrainerConfig, StandaloneSherlockTrainer)
+    cfg = presets.load(SHERLOCK_PRESETS)
+
+    def trainer(space):
+        return StandaloneSherlockTrainer(SherlockTrainerConfig(
+            env=cfg.env, model=cfg.model, n_envs=WM_ENVS,
+            horizon=WM_HORIZON, seed=WM_SEED, action_space=space),
+            sherlock_cfg=cfg.sherlock, device=DEV)
+    top = trainer("top_drop")
+    top.env_state = crowded(cfg.env, top.env_state, WM_SEED + 1)
+    top.train_iteration()
+    out = {"top_drop": placement_iteration(top, "sherlock top-drop", card)}
+    phases = {"top_drop": dict(top.phase_ms)}
+    full = trainer("full")
+    full.env_state = crowded(cfg.env, top.env_state, WM_SEED + 3)
+    out["full"] = placement_iteration(full, "sherlock full", card)
+    phases["full"] = dict(full.phase_ms)
+    b = WM_ENVS * WM_HORIZON
+    steps = cfg.sherlock.n_train_epochs * (b // cfg.sherlock.minibatch_size)
+    for space, (secs, sps, stats, err, dones) in out.items():
+        ph = phases[space]
+        log(f"[sherlock] {card}: {space}, {WM_ENVS} games x {WM_HORIZON} "
+            f"ticks and an update ({steps} Adam steps) in {secs:.2f} s = "
+            f"{sps:.1f} env-steps/s; phase_ms {ph}; masks "
+            f"{ph['masks'] / WM_HORIZON:.2f} ms per tick; max |kernel - "
+            f"plain| over the {WM_HORIZON} ticks {err} ({dones} dones); "
+            f"stats {stats}")
+        results["errs"][f"kinds_sherlock_{space}"] = err
+    d = results["_wm_tmp"].name
+    results["_wm_ckpts"] += [
+        wm_checkpoint(d, "sherlock", top, cfg, "sherlock_action_space",
+                      "top_drop"),
+        wm_checkpoint(d, "sherlock_full", full, cfg,
+                      "sherlock_action_space", "full")]
+    results.update(sherlock={k: dict(s=v[0], sps=v[1], phase_ms=phases[k])
+                             for k, v in out.items()},
+                   sherlock_launches=2 * WM_HORIZON)
+
+
+def phase_placement_eval(results, card):
+    """``eval`` of the five kinds through the command line's entry point in
+    this process: the PPO run of phase_cli (macro) and the SIXten and
+    Sherlock checkpoints of both spaces, WM_EVAL_GAMES games per pair,
+    argmax.  Every match tick is one launch of the one-tick entry (the
+    per-kind instantiation: no pairing is macro against macro) and equals
+    the plain version's."""
+    names = ["smoke", "sixten", "sixten_full", "sherlock", "sherlock_full"]
+    tmps = [results.pop("_cli_tmp"), results.pop("_wm_tmp")]
+    try:
+        smoke = os.path.join(tmps[0].name, "models", "smoke")
+        out, ticks, launches, secs, err, dones = eval_here(
+            [smoke] + results.pop("_wm_ckpts"), WM_EVAL_GAMES)
+    finally:
+        for tmp in tmps:
+            tmp.cleanup()
+    wins, draws, elo = check_eval(out, names, WM_EVAL_GAMES)
+    results["errs"]["kinds_eval"] = err
+    log(f"[placement eval] {card}: five kinds, {WM_EVAL_GAMES} games per "
+        f"pair: {ticks} match ticks in {secs:.1f} s = "
+        f"{ticks / secs:.2f} match ticks/s (one game a match); one-tick "
+        f"launches {launches}; max |kernel - plain| {err} ({dones} dones); "
+        f"wins {wins}, draws {draws}, Elo {elo}")
+    results.update(wm_eval_launches=launches, wm_eval_ticks=ticks,
+                   wm_eval_s=secs)
+
+
 THREEFRY_OPS = 79   # threefry2x32: key word 2 + 2 adds + 20 x (add, rotate,
                     # xor) + 5 x 3 key injections (a rotate is one SHF)
 
 
-def tick_int_ops(cfg, reset_share, action_draw):
+def tick_int_ops(cfg, reset_share, action_draw, kind="macro"):
     """32-bit integer and logic operations of one game-tick on the common
-    path (the acting player's macro, both players' finish phase), counted
-    term by term from the tick's code; loops that stop early are counted
-    at the trip count of a typical tick, low rather than high.  Float32
-    operations (bag weights, payout) are a few dozen and run on the FP32
-    units; they are not counted."""
+    path (the acting player's make phase of ``kind``: "macro", "place",
+    "pose" or "mixed", a third of each; both players' finish phase),
+    counted term by term from the tick's code; loops that stop early are
+    counted at the trip count of a typical tick, low rather than high.
+    Float32 operations (bag weights, payout) are a few dozen and run on
+    the FP32 units; they are not counted."""
     e = cfg.engine
     H, W, CAP = e.height, e.width, e.garbage_cap
     draw = 2 * THREEFRY_OPS + 3          # uniform01(fold_in(key, counter))
@@ -1681,6 +1960,14 @@ def tick_int_ops(cfg, reset_share, action_draw):
              + (W + 2) * (probe + 3)      # left and right slides: ~W+2 probes
              + ext + 4 * (H // 2) * 3     # hard drop: 4 rows scan ~H/2 rows
              + 4 * 5 + 4)                 # add the piece
+    make = {"macro": macro,
+            # placement: the rotations, one slide towards the target
+            "place": macro - (W + 2) * (probe + 3) / 2 + 6,
+            # pose lock: lookup, range checks, one probe, the hard drop
+            "pose": ext + 8 + 4 * 4 + probe + ext + 4 * (H // 2) * 3
+            + 4 * 5 + 4}
+    make["mixed"] = (make["macro"] + make["place"] + make["pose"]) / 3
+    macro = make[kind]
     finish = (6 * H                       # clear_lines: full test, move
               + 6                         # send_lines
               + 8 + draw + 4 + ext + probe  # new piece: copy, draw, spawn test
@@ -1724,7 +2011,8 @@ def phase_times(results, card, baseline=None):
     shapes; with a baseline library, its times in turns with the
     kernel's."""
     from drl_tetris_tpu_torch.engine import cuda_tick
-    from drl_tetris_tpu_torch.engine.checks import max_abs_err
+    from drl_tetris_tpu_torch.engine.checks import (crowded, kind_actions,
+                                                    max_abs_err)
     from drl_tetris_tpu_torch.env.env import (EnvConfig, TetrisVectorEnv,
                                               step_plain)
     cfg = EnvConfig()
@@ -1762,6 +2050,35 @@ def phase_times(results, card, baseline=None):
                                       False)
     del keep
 
+    # the one-tick entry's per-kind instantiation, N = 1024, from crowded
+    # boards: every game a placement, every game a pose lock, each game its
+    # own kind (a third each; the kernels line's figure)
+    kst = crowded(cfg, env.reset(9), 9)
+    kinds_t = {}
+    for mode in ("place", "pose", "mixed"):
+        kind, kr, kt, ky = kind_actions(cfg, kst, mode,
+                                        np.random.RandomState(2))
+        args, keep, (outs, k_rew, k_done) = cuda_tick.step_args(
+            cfg, kst, kr, kt, kind, ky)
+        launch = (lambda: cuda_tick.check(
+            libs[0].engine_tick_step(*args, stream), "engine_tick_step"))
+        cuda_ms(launch, 5)
+        ms = cuda_ms(launch, 200)
+        step_plain(cfg, kst, kr, kt, kind, ky)
+        p_ms = cuda_ms(lambda: plain.update(
+            out=step_plain(cfg, kst, kr, kt, kind, ky)), 10)
+        p_st, p_rew, p_done = plain["out"]
+        err = max(max_abs_err(cuda_tick.unflatten(outs), p_st),
+                  (k_rew - p_rew).abs().max().item(),
+                  float((k_done != p_done).sum().item()))
+        ops = N_SLICE * tick_int_ops(cfg, results["selfplay_reset_share"],
+                                     False, mode)
+        kinds_t[mode] = (ms, p_ms, err, ops)
+        del keep
+    kinds_ms, kinds_plain_ms, _, kinds_ops = kinds_t["mixed"]
+    kinds_err = max(v[2] for v in kinds_t.values())
+    kinds_bytes = 2 * state_bytes(kst) + 4 * 4 * N_SLICE + 5 * N_SLICE
+
     # T-tick entry, 4096 boards x T_ENGINE ticks, random actions
     env = TetrisVectorEnv(cfg, N_ENGINE, device=DEV)
     st = env.reset(8)
@@ -1785,8 +2102,8 @@ def phase_times(results, card, baseline=None):
         cfg, results["engine_reset_share"], True)
     cuda_tick.raise_if_overflowed(st.current_player.device)
     log(f"[times] {card}: max |kernel - plain| at the timed shapes: "
-        f"one-tick {step_err}, T-tick {roll_err}")
-    if step_err != 0.0 or roll_err != 0.0:
+        f"one-tick {step_err}, per-kind {kinds_err}, T-tick {roll_err}")
+    if step_err != 0.0 or roll_err != 0.0 or kinds_err != 0.0:
         raise AssertionError("kernel disagrees with the plain version at "
                              "the timed shapes")
 
@@ -1798,6 +2115,13 @@ def phase_times(results, card, baseline=None):
 
     step_ms, roll_ms = step_times[0], roll_times[0]
     sb, sby, sb_bytes, sb_ops = bound(step_bytes, step_ops)
+    kb, kby, kb_bytes, kb_ops = bound(kinds_bytes, kinds_ops)
+    log(f"[times] {card}: bound of the per-kind one-tick entry (mixed "
+        f"kinds): bytes {kinds_bytes} B -> {kb_bytes:.6f} ms, operations "
+        f"{kinds_ops:.4g} ({kinds_ops / N_SLICE:.0f} per game-tick; "
+        + ", ".join(f"{k} {tick_int_ops(cfg, results['selfplay_reset_share'], False, k):.0f}"
+                    for k in ("macro", "place", "pose"))
+        + f") -> {kb_ops:.6f} ms; bound by {kby}")
     rb, rby, rb_bytes, rb_ops = bound(roll_bytes, roll_ops)
     log(f"[times] {card}: int32 rate {int_rate:.4g} op/s derived from {sms} "
         f"SMs x {INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz (clocks.max.sm)")
@@ -1829,6 +2153,24 @@ def phase_times(results, card, baseline=None):
              path="training iteration (StandaloneTrainer.train_iteration)",
              shape=f"{N_SLICE} games x 1 tick", wrapper_ms=wrap_ms,
              bytes_ms=sb_bytes, ops_ms=sb_ops),
+        dict(name="engine_tick_step (per-kind)", route="cuda",
+             source=SOURCE, replaces=REPLACES,
+             launches=results["sixten_launches"]
+             + results["sherlock_launches"] + results["wm_eval_launches"],
+             sixten_launches=results["sixten_launches"],
+             sherlock_launches=results["sherlock_launches"],
+             eval_launches=results["wm_eval_launches"],
+             eval_ticks=results["wm_eval_ticks"],
+             max_abs_err=max([results["errs"][k] for k in results["errs"]
+                              if k.startswith("kinds")] + [kinds_err]),
+             ms=kinds_ms, plain_ms=kinds_plain_ms, bound_ms=kb,
+             bound_by=kby, library_ms=None,
+             path="SIXten and Sherlock iterations, the five-kind eval",
+             shape=f"{N_SLICE} games x 1 tick, mixed kinds",
+             bytes_ms=kb_bytes, ops_ms=kb_ops,
+             place_ms=kinds_t["place"][0], pose_ms=kinds_t["pose"][0],
+             place_plain_ms=kinds_t["place"][1],
+             pose_plain_ms=kinds_t["pose"][1]),
         dict(name="engine_tick_rollout", route="cuda", source=SOURCE,
              replaces=REPLACES, launches=results["rollout_launches"],
              max_abs_err=max([results["errs"][k] for k in results["errs"]
@@ -1841,6 +2183,12 @@ def phase_times(results, card, baseline=None):
     log(f"[times] {card}: one-tick entry {step_ms:.4f} ms/launch at "
         f"{N_SLICE} games ({N_SLICE / step_ms * 1e3:.0f} env-steps/s; "
         f"wrapper call {wrap_ms:.4f} ms), plain {step_plain_ms:.2f} ms")
+    for mode, (ms, p_ms, _, ops) in kinds_t.items():
+        b, by, b_bytes, b_ops = bound(kinds_bytes, ops)
+        log(f"[times] {card}: per-kind one-tick entry, {mode}: {ms:.4f} "
+            f"ms/launch at {N_SLICE} games, plain {p_ms:.2f} ms; bound "
+            f"{b:.6f} ms by {by} (bytes {b_bytes:.6f} ms, operations "
+            f"{ops:.4g} -> {b_ops:.6f} ms)")
     log(f"[times] {card}: T-tick entry {roll_ms:.4f} ms for {N_ENGINE} "
         f"boards x {T_ENGINE} ticks = "
         f"{N_ENGINE * T_ENGINE / roll_ms * 1e3:.0f} env-steps/s, plain "
@@ -1884,7 +2232,8 @@ def main():
     baseline = phase_build(results, card, opts.baseline)
     for phase in (phase_kernel_vs_plain, phase_selfplay, phase_train,
                   phase_cli, phase_demo, phase_dqn, phase_dual,
-                  phase_dual_dqn, phase_architectures, phase_engine):
+                  phase_dual_dqn, phase_architectures, phase_sixten,
+                  phase_sherlock, phase_placement_eval, phase_engine):
         t = time.perf_counter()
         phase(results, card)
         log(f"[{phase.__name__}] done in {time.perf_counter() - t:.1f} s")

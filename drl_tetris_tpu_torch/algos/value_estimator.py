@@ -114,3 +114,16 @@ def kstep_targets(engine_cfg: EngineConfig, ref_net, cfg: EstimatorConfig,
             est_sum = est_sum + e * lam_kk
             weight = weight + lam_kk
         return est_sum / weight
+
+
+def make_target_fn(engine_cfg: EngineConfig, ref_net,
+                   cfg: EstimatorConfig):
+    """Returns targets(net, windows) -> (n,) float32: ``kstep_targets``
+    through ``net`` (the reference weights), or through ``ref_net`` when
+    ``net`` is None."""
+
+    def targets(net, windows):
+        return kstep_targets(engine_cfg, ref_net if net is None else net,
+                             cfg, windows)
+
+    return targets

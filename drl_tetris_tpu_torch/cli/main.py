@@ -17,13 +17,16 @@ sventon sventon_dqn ...``), each also as dual-policy training (``--set
 single_policy=false``: two policies against each other, checkpoints hold
 policy 0, as the JAX CLI's; ``--resume``, ``--init-from`` and
 ``--pool-seed`` are refused there), with any of the four architectures
-(``--set architecture=silver|vanilla|keyboard|dreamer``); ``eval`` mixes
-PPO and DQN checkpoints of any architecture.
+(``--set architecture=silver|vanilla|keyboard|dreamer``); SIXten
+(``--presets default sventon sventon_dqn experiment_sixten``) and Sherlock
+(``--presets default sventon sherlock``), each in the top-drop or the full
+placement space (``--set sixten_action_space=full`` /
+``sherlock_action_space=full``).  ``eval`` mixes checkpoints of every
+flavour and architecture.
 
 Not ported yet, each exits with a message naming its ROADMAP item:
 ``train --distributed/--multihost`` and the verbs ``kv``, ``worker``,
-``trainer``, ``up`` (14); the flavours ``sixten`` and ``sherlock`` (11,
-13); ``play`` (15); ``bench`` (10).
+``trainer``, ``up`` (14); ``play`` (15); ``bench`` (10).
 """
 from __future__ import annotations
 
@@ -125,13 +128,11 @@ def cmd_train(args):
 
 def _check_trainable(cfg, args):
     """What the port's trainers run: PPO and DQN, single- or
-    dual-policy; a dual run has no resume, warm start or seeded pool."""
-    if cfg.flavour in ("sixten", "sherlock"):
-        raise SystemExit(f"flavour {cfg.flavour!r} waits for ROADMAP 13 "
-                         "(and its placement masks, ROADMAP 11)")
-    if cfg.flavour not in ("ppo", "dqn"):
+    dual-policy, SIXten and Sherlock; a dual run has no resume, warm start
+    or seeded pool."""
+    if cfg.flavour not in ("ppo", "dqn", "sixten", "sherlock"):
         raise SystemExit(f"unknown flavour {cfg.flavour!r}")
-    if cfg.ppo.single_policy:
+    if cfg.ppo.single_policy or cfg.flavour in ("sixten", "sherlock"):
         return
     if args.resume:
         raise SystemExit("--resume supports the single-state trainers "
@@ -188,6 +189,21 @@ def _make_trainer(cfg, args):
     from drl_tetris_tpu_torch.runtime import standalone as S
     n_envs = args.n_envs or cfg.n_envs
     s = cfg.settings
+    if cfg.flavour == "sixten":
+        return S.StandaloneSIXtenTrainer(S.StandaloneSIXtenConfig(
+            env=cfg.env, model=cfg.model, replay=cfg.replay, n_envs=n_envs,
+            horizon=args.horizon, train_distribution=cfg.train_distribution,
+            seed=args.seed, epsilon=cfg.epsilon,
+            action_temperature=cfg.action_temperature,
+            tau_learning_rate=cfg.tau_learning_rate,
+            action_space=s.get("sixten_action_space", "top_drop")),
+            sixten_cfg=cfg.sixten, device=args.device)
+    if cfg.flavour == "sherlock":
+        return S.StandaloneSherlockTrainer(S.SherlockTrainerConfig(
+            env=cfg.env, model=cfg.model, n_envs=n_envs,
+            horizon=args.horizon, seed=args.seed,
+            action_space=s.get("sherlock_action_space", "top_drop")),
+            sherlock_cfg=cfg.sherlock, device=args.device)
     if not cfg.ppo.single_policy:
         # two policies against each other (worker.py:157-192), gated by
         # their win rate
@@ -247,7 +263,7 @@ def _train_one(cfg, args):
         # Crash/preemption recovery: the learner's state from the run's
         # own latest checkpoint, the step count continued from there and
         # the key chain moved past the opening segment; the env resets and
-        # a DQN run's replay restarts empty.
+        # a DQN or SIXten run's replay restarts empty.
         latest = ckpt.latest_step(ckpt_dir)
         if latest is None:
             print(f"[resume] no checkpoint in {ckpt_dir}; starting fresh",
@@ -286,7 +302,7 @@ def _train_one(cfg, args):
         league = TrainingLeague(cfg.env, random_anchor(tr.net),
                                 out_dir=ckpt_dir,
                                 games_per_pair=args.league_games,
-                                fixed_anchors=anchors)
+                                kind=_kind(cfg), fixed_anchors=anchors)
         if resumed_from is not None:
             # Re-seed the rolling pool from the run's own saved snapshots,
             # so the resumed segment keeps playing its recent past (the
@@ -353,12 +369,29 @@ def _train_one(cfg, args):
     print(timekeeper.table())
 
 
+def _kind(cfg) -> str:
+    """The evaluation kind of ``cfg``'s flavour and action space."""
+    if cfg.flavour == "sixten":
+        return ("world_model_full"
+                if cfg.settings.get("sixten_action_space") == "full"
+                else "world_model")
+    if cfg.flavour == "sherlock":
+        return ("sherlock_full"
+                if cfg.settings.get("sherlock_action_space") == "full"
+                else "sherlock")
+    return "macro"
+
+
 def _new_net(cfg, device):
-    """An untrained full net of ``cfg``'s flavour (QNet for dqn, else
-    PPONet) for its model and board."""
+    """An untrained full net of ``cfg``'s flavour (QNet for dqn, VNet for
+    sixten, SherlockNet for sherlock, else PPONet) for its model and
+    board."""
+    from drl_tetris_tpu_torch.algos.sherlock import SherlockNet
+    from drl_tetris_tpu_torch.algos.sixten import VNet
     from drl_tetris_tpu_torch.models.nets import PPONet, QNet
     e = cfg.env.engine
-    cls = QNet if cfg.flavour == "dqn" else PPONet
+    cls = {"dqn": QNet, "sixten": VNet, "sherlock": SherlockNet}.get(
+        cfg.flavour, PPONet)
     return cls(cfg.model, board=(e.height, e.width), full_network=True,
                device=device)
 
@@ -367,7 +400,8 @@ def _load_agent(path, cfg, device=None, name=None):
     """Build an EvalAgent from a checkpoint, reconstructing it from the
     settings side-file saved next to the weights (the reference's
     weights<->settings pairing, eval.py:99-104, tools/utils.py:47-52), so
-    tournaments can mix flavours (PPONet and QNet) and model sizes.
+    tournaments can mix flavours (PPONet, QNet, VNet, SherlockNet) and
+    model sizes.
     ``random`` is a net with fresh weights (the JAX package draws them from
     PRNGKey(0); the port from a torch.Generator seeded with 0)."""
     import torch
@@ -384,9 +418,6 @@ def _load_agent(path, cfg, device=None, name=None):
             except Exception as e:
                 print(f"warning: {path}: unusable settings side-file ({e}); "
                       "using CLI presets", file=sys.stderr)
-    if cfg.flavour in ("sixten", "sherlock"):
-        raise SystemExit(f"{path}: {cfg.flavour} agents are not ported yet "
-                         "(ROADMAP 11, 13)")
     net = _new_net(cfg, device)
     if path == "random":
         net.init_flax_(torch.Generator().manual_seed(0))
@@ -395,7 +426,8 @@ def _load_agent(path, cfg, device=None, name=None):
         net.load_params_(raw.get("params", raw))
     net.eval().requires_grad_(False)
     return EvalAgent(name=name or os.path.basename(path.rstrip("/")),
-                     net=net, distribution=cfg.eval_distribution), cfg
+                     net=net, distribution=cfg.eval_distribution,
+                     kind=_kind(cfg)), cfg
 
 
 def _check_compat(cfgs):
@@ -487,8 +519,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="drl_tetris_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    t = sub.add_parser("train", help="self-play training (PPO or DQN, "
-                       "standalone)")
+    t = sub.add_parser("train", help="self-play training (PPO, DQN, SIXten "
+                       "or Sherlock, standalone)")
     _add_common(t)
     t.add_argument("--steps", type=int, default=10_000_000)
     t.add_argument("--experiment", nargs="*", default=[],

@@ -6,10 +6,8 @@ preset dictionaries (plain data and registry names), the same layering
 (presets in order, then the experiment dict, patches and CLI overrides),
 and the same typed result.
 
-The port has no SIXten or Sherlock configs yet (ROADMAP 13):
-``FrameworkConfig.sixten`` and ``sherlock`` stay None.  ``resolve``
-accepts every preset all the same, so evaluation and ``print-config`` read
-any run's settings; ``train`` refuses what it cannot run.
+``resolve`` builds every flavour's config (PPO, DQN, SIXten, Sherlock)
+from the merged settings, with the JAX package's defaults.
 """
 from __future__ import annotations
 
@@ -232,8 +230,8 @@ class FrameworkConfig:
     model: ModelConfig = ModelConfig()
     ppo: PPOConfig = PPOConfig()
     dqn: DQNConfig = DQNConfig()
-    sixten: Any = None                # SixtenConfig: ROADMAP 13
-    sherlock: Any = None              # SherlockConfig: ROADMAP 13
+    sixten: Any = None                # algos/sixten.SixtenConfig
+    sherlock: Any = None              # algos/sherlock.SherlockConfig
     replay: ReplayConfig = ReplayConfig()
     flavour: str = "ppo"
     n_envs: int = 30
@@ -264,9 +262,8 @@ def merge_settings(presets: Sequence[str], *overlays: Dict[str, Any]
 
 
 def resolve(settings: Dict[str, Any], run_id: str = "run") -> FrameworkConfig:
-    """Validate the merged dict into typed configs (the env, model, PPO,
-    DQN and replay parts of the JAX package's ``resolve``, with its
-    defaults)."""
+    """Validate the merged dict into typed configs (the JAX package's
+    ``resolve``, with its defaults)."""
     s = settings
     h, w = s.get("game_size", (22, 10))
     engine = EngineConfig(
@@ -344,8 +341,35 @@ def resolve(settings: Dict[str, Any], run_id: str = "run") -> FrameworkConfig:
         sample_mode={"rank": "rank"}.get(
             s.get("experience_replay_sample_mode", "rank"), "proportional"),
     )
+    from drl_tetris_tpu_torch.algos.sherlock import SherlockConfig
+    from drl_tetris_tpu_torch.algos.sixten import SixtenConfig
+    sixten = SixtenConfig(
+        lr=param_eval(s.get("value_lr", 1e-4)),
+        nn_regularizer=s.get("nn_regularizer", 1e-4),
+        n_samples_each_update=s.get("n_samples_each_update", 4096),
+        minibatch_size=s.get("minibatch_size", 32),
+        n_train_epochs=s.get("n_train_epochs_per_update", 1),
+        alpha=s.get("prioritized_replay_alpha", 0.7),
+        beta=s.get("prioritized_replay_beta", 0.7),
+        time_to_reference_update=s.get("time_to_reference_update", 3),
+        estimator=estimator,
+    )
+    sherlock = SherlockConfig(
+        clipping_parameter=s.get("clipping_parameter", 0.15),
+        value_loss=s.get("value_loss", 0.01),
+        policy_loss=s.get("policy_loss", 0.9),
+        entropy_loss=s.get("entropy_loss", 0.0),
+        impossibility_loss=s.get("impossibility_loss", 0.1),
+        nn_regularizer=s.get("nn_regularizer", 1e-5),
+        lr=param_eval(s.get("value_lr", 1e-5)),
+        gamma=s.get("gamma", 0.98),
+        gae_lambda=s.get("gae_lambda", 0.7),
+        n_train_epochs=s.get("n_train_epochs_per_update", 2),
+        minibatch_size=s.get("minibatch_size", 64),
+    )
     return FrameworkConfig(
-        settings=s, env=env, model=model, ppo=ppo, dqn=dqn, replay=replay,
+        settings=s, env=env, model=model, ppo=ppo, dqn=dqn, sixten=sixten,
+        sherlock=sherlock, replay=replay,
         flavour=s.get("flavour", "ppo"),
         n_envs=s.get("n_envs_per_thread", 30),
         train_distribution=s.get("train_distribution", "pi"),

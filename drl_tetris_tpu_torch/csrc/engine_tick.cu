@@ -41,7 +41,14 @@
 //   engine_tick_step     one env tick; also writes the acting player's
 //                        reward and done, taken before the reset merge
 //                        (env/env.py step).  Carries the NN-in-the-loop
-//                        rollout.
+//                        rollout.  With per-game kind and y arrays it runs
+//                        each game's own make phase (0 the (r, t) macro,
+//                        1 the column-targeted placement, 2 the pose
+//                        lock at row y), the env's step_place, step_pose
+//                        and step_mixed* variants; without them (null
+//                        pointers) the macro-only instantiation runs.
+//                        The kind is per game, so its branch is uniform
+//                        across the warp.
 //   engine_tick_rollout  T ticks with the state held in registers; actions
 //                        replayed from (T, N) arrays or drawn in-kernel as
 //                        random_bits(fold_in(fold_in(base_key, tick),
@@ -972,6 +979,42 @@ DEV void apply_macro(const Ctx& x, Player& v, int r, int tr) {
   hd_make(c, v);
 }
 
+// Column-targeted placement (engine/step.py apply_place): r_rel cw
+// rotations, then |x_target - centre| single steps towards the target from
+// the spawn centre (W - 4) / 2, whatever the kicks moved, capped at the
+// slide distance on that side, then hard drop.
+DEV void apply_place(const Ctx& x, Player& v, int r_rel, int x_target) {
+  const Cfg& c = *x.cfg;
+  V<uint32_t> ext = ext_board(c, v.occ);
+  for (int k = 0; k < 3; k++)
+    if (k < r_rel)
+      try_rotate(x, ext, v.piece, &v.rot, &v.px, &v.py, v.cur_rows, 1);
+  int dx = x_target - (c.W - 4) / 2;
+  int n = dx < 0 ? -dx : dx;
+  int slide = slide_distance(c, ext, v.cur_rows, v.px, v.py, dx >= 0 ? 1 : -1);
+  int steps = n < slide ? n : slide;
+  v.px += dx >= 0 ? steps : -steps;
+  hd_make(c, v);
+}
+
+// Direct pose lock (engine/step.py apply_pose): the piece at (rot clipped
+// to [0, 3], posX = col - 1, posY = y) if that pose is possible, else
+// where it is; then hard drop.
+DEV void apply_pose(const Ctx& x, Player& v, int rot, int col, int y) {
+  const Cfg& c = *x.cfg;
+  rot = rot < 0 ? 0 : rot > 3 ? 3 : rot;
+  uint32_t rows[4];
+  lookup_rows(x, v.piece, rot, rows);
+  if (possible(c, ext_board(c, v.occ), rows, col - 1, y)) {
+    v.rot = rot;
+    v.px = col - 1;
+    v.py = y;
+    UNROLL
+    for (int i = 0; i < 4; i++) v.cur_rows[i] = rows[i];
+  }
+  hd_make(c, v);
+}
+
 DEV void distribute(Game& g, int sender, int amount) {
   float per = (float)amount;      // amount / (P - 1) with P == 2
   UNROLL
@@ -1146,17 +1189,23 @@ DEV void tick_draws(const Game& g, const uint32_t* akey, uint32_t aidx,
   d->bits = (uint32_t)bcast(w, 4);
 }
 
-// One env tick (env/env.py step): the acting player's macro, the finish
-// phase, reward/done before the reset, key split, auto-reset, flip; dr:
-// the tick's draws (tick_draws).
+enum Kind { K_MACRO = 0, K_PLACE = 1, K_POSE = 2 };
+
+// One env tick (env/env.py step): the acting player's make phase of the
+// game's kind, the finish phase, reward/done before the reset, key split,
+// auto-reset, flip; dr: the tick's draws (tick_draws).
 DEV void env_tick(const Ctx& x, Game& g, const Draws& dr, int r, int t,
-                  float* reward, bool* done) {
+                  int kind, int y, float* reward, bool* done) {
   const Cfg& c = *x.cfg;
   int me = g.current_player;
   if (!g.round_over) {
     UNROLL
-    for (int i = 0; i < 2; i++)
-      if (!g.pl[i].dead && i == me) apply_macro(x, g.pl[i], r, t);
+    for (int i = 0; i < 2; i++) {
+      if (g.pl[i].dead || i != me) continue;
+      if (kind == K_PLACE) apply_place(x, g.pl[i], r, t);
+      else if (kind == K_POSE) apply_pose(x, g.pl[i], r, t, y);
+      else apply_macro(x, g.pl[i], r, t);
+    }
     finish_phase(x, g, dr.u);
   }
   bool d = g.round_over;
@@ -1321,17 +1370,21 @@ DEV void store_game(const Cfg& c, const Ptrs& p, int n, const Game& g) {
 }
 
 // The per-game bodies of the two entries: one warp's work on the card, one
-// call per game in the host build (csrc/engine_tick_host.cpp)
+// call per game in the host build (csrc/engine_tick_host.cpp).  kMixed:
+// each game's make phase comes from kind[n] (and y[n]); else every game
+// runs the macro.
+template <bool kMixed>
 DEV void step_game(const Ctx& x, const Ptrs& in, const Ptrs& out, int n,
-                   const int32_t* r, const int32_t* t, float* reward,
-                   uint8_t* done) {
+                   const int32_t* r, const int32_t* t, const int32_t* kind,
+                   const int32_t* y, float* reward, uint8_t* done) {
   Game g;
   load_game(*x.cfg, in, n, g);
   Draws dr;
   tick_draws(g, g.key, 0u, &dr);
   float rew;
   bool d;
-  env_tick(x, g, dr, r[n], t[n], &rew, &d);
+  env_tick(x, g, dr, r[n], t[n], kMixed ? kind[n] : (int)K_MACRO,
+           kMixed ? y[n] : 0, &rew, &d);
   store_game(*x.cfg, out, n, g);
   if (lead()) {
     reward[n] = rew;
@@ -1384,7 +1437,7 @@ DEV void rollout_game(const Ctx& x, const Ptrs& in, const Ptrs& out, int n,
     }
     float rew;
     bool d;
-    env_tick(x, g, dr, r, t, &rew, &d);
+    env_tick(x, g, dr, r, t, K_MACRO, 0, &rew, &d);
   }
   store_game(*x.cfg, out, n, g);
 }
@@ -1417,16 +1470,18 @@ DEV const uint32_t* block_table(const uint32_t* tab, uint32_t* s_tab) {
   return s_tab;
 }
 
+template <bool kMixed>
 __global__ void __launch_bounds__(kWarps * WARP)
 step_kernel(const __grid_constant__ Cfg cfg, const __grid_constant__ Ptrs in,
             const __grid_constant__ Ptrs out, const int32_t* r,
-            const int32_t* t, float* reward, uint8_t* done,
-            const uint32_t* tab, int* flags, int n_games) {
+            const int32_t* t, const int32_t* kind, const int32_t* y,
+            float* reward, uint8_t* done, const uint32_t* tab, int* flags,
+            int n_games) {
   __shared__ uint32_t s_tab[N_TAB];
   Ctx x = {&cfg, block_table(tab, s_tab), flags};
   int n = blockIdx.x * kWarps + (int)(threadIdx.x / WARP);
   if (n >= n_games) return;               // the whole warp
-  step_game(x, in, out, n, r, t, reward, done);
+  step_game<kMixed>(x, in, out, n, r, t, kind, y, reward, done);
 }
 
 __global__ void __launch_bounds__(kWarps * WARP)
@@ -1451,10 +1506,13 @@ static int n_blocks(int n_games) { return (n_games + kWarps - 1) / kWarps; }
 
 extern "C" int engine_tick_n_leaves() { return N_LEAVES; }
 
+// kind and y: per-game make phase and pose row, or both null for the
+// macro-only instantiation
 extern "C" int engine_tick_step(const int32_t* icfg, float wbase, float wcombo,
                                 float slope, const int64_t* in_ptrs,
                                 const int64_t* out_ptrs, const int32_t* r,
-                                const int32_t* t, float* reward, uint8_t* done,
+                                const int32_t* t, const int32_t* kind,
+                                const int32_t* y, float* reward, uint8_t* done,
                                 const uint32_t* tab, int* flags, int n_games,
                                 void* stream) {
   Cfg cfg;
@@ -1462,8 +1520,14 @@ extern "C" int engine_tick_step(const int32_t* icfg, float wbase, float wcombo,
   Ptrs in, out;
   to_ptrs(in_ptrs, &in);
   to_ptrs(out_ptrs, &out);
-  step_kernel<<<n_blocks(n_games), kWarps * WARP, 0, (cudaStream_t)stream>>>(
-      cfg, in, out, r, t, reward, done, tab, flags, n_games);
+  if (kind != 0)
+    step_kernel<true><<<n_blocks(n_games), kWarps * WARP, 0,
+                        (cudaStream_t)stream>>>(
+        cfg, in, out, r, t, kind, y, reward, done, tab, flags, n_games);
+  else
+    step_kernel<false><<<n_blocks(n_games), kWarps * WARP, 0,
+                         (cudaStream_t)stream>>>(
+        cfg, in, out, r, t, kind, y, reward, done, tab, flags, n_games);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,7 @@ extern "C" int engine_tick_host_step(const int32_t* icfg, float wbase,
                                      const int64_t* in_ptrs,
                                      const int64_t* out_ptrs,
                                      const int32_t* r, const int32_t* t,
+                                     const int32_t* kind, const int32_t* y,
                                      float* reward, uint8_t* done,
                                      const uint32_t* tab, int* flags,
                                      int n_games) {
@@ -33,8 +34,12 @@ extern "C" int engine_tick_host_step(const int32_t* icfg, float wbase,
   host_ptrs(in_ptrs, &in);
   host_ptrs(out_ptrs, &out);
   Ctx x = {&cfg, tab, flags};
-  for (int n = 0; n < n_games; n++)
-    step_game(x, in, out, n, r, t, reward, done);
+  for (int n = 0; n < n_games; n++) {
+    if (kind != 0)
+      step_game<true>(x, in, out, n, r, t, kind, y, reward, done);
+    else
+      step_game<false>(x, in, out, n, r, t, kind, y, reward, done);
+  }
   return 0;
 }
 

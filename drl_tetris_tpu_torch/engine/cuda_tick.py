@@ -3,9 +3,12 @@ TPU kernel ``drl_tetris_tpu/engine/pallas_tick.py::_rollout``.
 
 Two entries, each with its plain PyTorch version beside it:
 
-* ``step(cfg, state, r, t) -> (state', reward, done)``: one env tick; the
-  NN-in-the-loop rollout calls it between policy forwards.  Plain version:
-  ``env.env.step_plain``.
+* ``step(cfg, state, r, t, kind=None, y=None) -> (state', reward,
+  done)``: one env tick; the NN-in-the-loop rollouts and evaluation call
+  it between policy forwards.  ``kind`` (N,) picks each game's make phase
+  (0 macro, 1 placement, 2 pose lock at row ``y``) and launches the
+  kernel's per-kind instantiation; without it the macro-only one runs.
+  Plain version: ``env.env.step_plain``.
 * ``rollout(cfg, state, n_ticks, actions=(r, t) | base_key=..,
   block_games=..)``: T ticks in one launch, the contract of
   ``rollout_pallas``.  Plain version: ``rollout_plain``.
@@ -25,7 +28,9 @@ pointer once, the per-config words and the per-shape leaf specs are
 cached, and the outputs are 45 ``empty_like`` calls (cutting one flat
 buffer into 45 typed views costs more host time per call).
 
-``LAUNCHES`` counts kernel launches per entry (the plain path never counts).
+``LAUNCHES`` counts kernel launches per entry, ``step_kinds`` for the
+per-kind instantiation of the one-tick entry (the plain path never
+counts).
 A combo count past the payout table sets a flag word on the device:
 ``rollout`` checks it after its launch, and callers of ``step`` check it
 once per rollout with ``raise_if_overflowed`` (a per-tick check would wait
@@ -51,7 +56,7 @@ from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine.step import COMBO_POW_BITS, DUR_SLOPE
 from drl_tetris_tpu_torch.env.env import EnvConfig, EnvState, step_plain
 
-LAUNCHES = {"step": 0, "rollout": 0}
+LAUNCHES = {"step": 0, "step_kinds": 0, "rollout": 0}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "engine_tick.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -182,14 +187,17 @@ def _ptr_array(tensors):
     return _PTRS(*[t.data_ptr() for t in tensors])
 
 
-def step_args(cfg: EnvConfig, state: EnvState, r, t):
+def step_args(cfg: EnvConfig, state: EnvState, r, t, kind=None, y=None):
     """Validate, allocate the outputs and marshal the C arguments of the
-    one-tick entry (without the stream).  Returns (args, keep, outputs):
-    ``keep`` must stay alive until the call returns."""
+    one-tick entry (without the stream); ``kind`` and ``y`` (N,) select
+    the per-kind instantiation.  Returns (args, keep, outputs): ``keep``
+    must stay alive until the call returns."""
     leaves, pin = state_leaves(cfg, state)
     n = leaves[0].shape[0]
     dev = leaves[0].device
-    for a in (r, t):
+    if (kind is None) != (y is None):
+        raise ValueError("pass both kind and y, or neither")
+    for a in (r, t) if kind is None else (r, t, kind, y):
         if a.device != dev or a.dtype != torch.int32 or \
                 tuple(a.shape) != (n,) or not a.is_contiguous():
             raise ValueError("actions must be contiguous int32 (N,) tensors "
@@ -202,8 +210,10 @@ def step_args(cfg: EnvConfig, state: EnvState, r, t):
     pout = _ptr_array(outs)
     args = (icfg.ctypes.data, cfg.reward_base_weight, cfg.reward_combo_weight,
             DUR_SLOPE, ctypes.addressof(pin), ctypes.addressof(pout),
-            r.data_ptr(), t.data_ptr(), reward.data_ptr(), done.data_ptr(),
-            tab.data_ptr(), flags.data_ptr(), n)
+            r.data_ptr(), t.data_ptr(),
+            None if kind is None else kind.data_ptr(),
+            None if y is None else y.data_ptr(), reward.data_ptr(),
+            done.data_ptr(), tab.data_ptr(), flags.data_ptr(), n)
     keep = (icfg, pin, pout, leaves)
     return args, keep, (outs, reward, done)
 
@@ -242,7 +252,7 @@ def declare(fn_step, fn_rollout, with_stream: bool) -> None:
     P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_uint32
     tail = [P] if with_stream else []
-    fn_step.argtypes = [P, F, F, F, P, P, P, P, P, P, P, P, I] + tail
+    fn_step.argtypes = [P, F, F, F, P, P, P, P, P, P, P, P, P, P, I] + tail
     fn_step.restype = I
     fn_rollout.argtypes = [P, F, F, F, P, P, I, P, P, U, U, I, P, P, I] + tail
     fn_rollout.restype = I
@@ -314,23 +324,27 @@ def check(rc: int, what: str) -> None:
 # Entries
 # ---------------------------------------------------------------------------
 
-def step(cfg: EnvConfig, state: EnvState, rotations, translations
-         ) -> Tuple[EnvState, torch.Tensor, torch.Tensor]:
+def step(cfg: EnvConfig, state: EnvState, rotations, translations,
+         kind=None, y=None) -> Tuple[EnvState, torch.Tensor, torch.Tensor]:
     """One env tick: (state', reward, done).  CPU tensors run step_plain;
-    CUDA tensors launch the kernel's one-tick entry."""
+    CUDA tensors launch the kernel's one-tick entry (its per-kind
+    instantiation when ``kind`` is given)."""
     dev = state.current_player.device
     if dev.type == "cpu":
-        return step_plain(cfg, state, rotations, translations)
+        return step_plain(cfg, state, rotations, translations, kind, y)
     if dev.type != "cuda":
         raise ValueError(f"no engine path for device {dev}")
     r = rotations.to(torch.int32).contiguous()
     t = translations.to(torch.int32).contiguous()
-    args, keep, (outs, reward, done) = step_args(cfg, state, r, t)
+    if kind is not None:
+        kind = kind.to(torch.int32).contiguous()
+        y = y.to(torch.int32).contiguous()
+    args, keep, (outs, reward, done) = step_args(cfg, state, r, t, kind, y)
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(lib.engine_tick_step(*args, stream), "engine_tick_step")
-    LAUNCHES["step"] += 1
+    LAUNCHES["step" if kind is None else "step_kinds"] += 1
     del keep
     return unflatten(outs), reward, done
 

@@ -55,6 +55,21 @@ def lookup_rows(piece: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[:, None], rows, 0)
 
 
+def lookup_rows_all(piece: torch.Tensor) -> torch.Tensor:
+    """(N, 4, 4) row masks of every rotation of ``piece`` (rotation,
+    row); zeros for ids out of range."""
+    ok = (piece >= 0) & (piece < 7)
+    rows = _row_masks(piece.device)[piece.long().clamp(0, 6)]
+    return torch.where(ok[:, None, None], rows, 0)
+
+
+def select_rot(all_rows: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """(N, 4) row masks of rotation ``rot`` out of a lookup_rows_all
+    table; rotation 0's for ids outside [1, 3], as JAX's select chain."""
+    r = torch.where((rot >= 1) & (rot <= 3), rot, 0).long()
+    return all_rows.gather(1, r[:, None, None].expand(-1, 1, 4))[:, 0]
+
+
 def _piece_column(cfg: EngineConfig, rows4, py):
     """Paint the 4 piece rows into an (N, H) column at rows py..py+3, plus
     a flag for occupied rows outside [0, H-1]."""
@@ -184,6 +199,7 @@ def add_garbage_line(cfg: EngineConfig, occ, garb, hole):
     return occ2, garb2
 
 
-__all__ = ["u32", "shl32", "shr32", "ext_board", "lookup_rows", "possible",
+__all__ = ["u32", "shl32", "shr32", "ext_board", "lookup_rows",
+           "lookup_rows_all", "select_rot", "possible",
            "drop_distance", "slide_distance", "try_move", "try_rotate",
            "add_piece", "clear_lines", "add_garbage_line", "KICKS"]

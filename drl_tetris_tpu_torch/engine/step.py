@@ -26,8 +26,12 @@ bit for bit:
 * the bag draw's ``u*1000 - cogp[0]`` is not fused (its product has two
   uses).
 
-Only the macro path (``step_macro``) is ported; ``step_place``,
-``step_pose`` and ``step_keys`` wait for the masks slice.
+Three make phases share the finish phase: the (r, t) macro
+(``step_macro``), the column-targeted placement (``step_place``) and the
+direct pose lock (``step_pose``); ``step_mixed`` picks one of them per
+game (``MACRO``, ``PLACE``, ``POSE``), as the JAX env's ``step_mixed*``
+variants select between two.  ``step_keys`` replays raw key codes; it runs
+only as plain PyTorch (no agent acts through it).
 """
 from __future__ import annotations
 
@@ -506,6 +510,79 @@ def apply_macro(cfg: EngineConfig, v: PlayerState, r, tr) -> PlayerState:
     return _hd_make(cfg, v.replace(rot=rot, px=px, py=py, cur_rows=rows))
 
 
+MACRO, PLACE, POSE = 0, 1, 2        # the make phase of a game (``kind``)
+
+
+def apply_place(cfg: EngineConfig, v: PlayerState, r_rel, x_target
+                ) -> PlayerState:
+    """Column-targeted placement (TestField's top-drop key macro): r_rel cw
+    rotations, then |x_target - centre| single steps towards the target,
+    measured from the spawn centre (W - 4) // 2 whatever the kicks moved,
+    capped at the slide distance on that side, then hard drop."""
+    ext = K.ext_board(cfg, v.occ)
+    rot, px, py, rows = v.rot, v.px, v.py, v.cur_rows
+    for k in range(3):
+        do = r_rel > k
+        _, rot2, px2, py2, rows2 = K.try_rotate(cfg, ext, v.piece, rot, px,
+                                                py, 1, rows)
+        rot = torch.where(do, rot2, rot)
+        px = torch.where(do, px2, px)
+        py = torch.where(do, py2, py)
+        rows = _sel(do, rows2, rows)
+    dx = x_target - (cfg.width - 4) // 2
+    n = dx.abs()
+    sl_r = K.slide_distance(cfg, ext, rows, px, py, +1)
+    sl_l = K.slide_distance(cfg, ext, rows, px, py, -1)
+    move = torch.where(dx >= 0, torch.minimum(n, sl_r),
+                       -torch.minimum(n, sl_l))
+    return _hd_make(cfg, v.replace(rot=rot, px=px + move, py=py,
+                                   cur_rows=rows))
+
+
+def apply_pose(cfg: EngineConfig, v: PlayerState, rot_abs, col, y
+               ) -> PlayerState:
+    """Direct pose lock: the piece at (rot_abs clipped to [0, 3], posX =
+    col - 1, posY = y), then hard drop; a pose that is not possible leaves
+    the piece where it is, so it drops from its current pose."""
+    ext = K.ext_board(cfg, v.occ)
+    rot_abs = rot_abs.clamp(0, 3)
+    rows = K.lookup_rows(v.piece, rot_abs)
+    px = col - 1
+    ok = K.possible(cfg, ext, rows, px, y)
+    return _hd_make(cfg, v.replace(
+        rot=torch.where(ok, rot_abs, v.rot), px=torch.where(ok, px, v.px),
+        py=torch.where(ok, y, v.py), cur_rows=_sel(ok, rows, v.cur_rows)))
+
+
+def make_phase(cfg: EngineConfig, state: EngineState, use, kind, r, t, y
+               ) -> EngineState:
+    """make_actions with each game's own kind of action: ``kind`` (N,)
+    picks MACRO (r, t), PLACE (r_rel, x_target) or POSE (rot_abs, col, y)
+    for both players of the game; use/r/t/y are (N, P), use False == null
+    action.  Only the kinds present are computed (a host read: this is
+    the plain version)."""
+    kinds = [k for k in (MACRO, PLACE, POSE) if bool((kind == k).any())]
+    ps = state.players
+    for i in range(cfg.n_players):
+        v = _get(ps, i)
+        out = None
+        for k in kinds:
+            if k == MACRO:
+                vk = apply_macro(cfg, v, r[:, i], t[:, i])
+            elif k == PLACE:
+                vk = apply_place(cfg, v, r[:, i], t[:, i])
+            else:
+                vk = apply_pose(cfg, v, r[:, i], t[:, i], y[:, i])
+            out = vk if out is None else _merge(kind == k, vk, out)
+        if out is not None:
+            ps = _put(ps, i, out, ~v.dead & use[:, i], base=v)
+    return state.replace(players=ps)
+
+
+def _full_kind(use, k):
+    return torch.full(use.shape[:1], k, dtype=I32, device=use.device)
+
+
 def make_phase_macro(cfg: EngineConfig, state: EngineState, use, r, tr
                      ) -> EngineState:
     """make_actions with (r, t) macros; use (N, P) False == null action."""
@@ -514,6 +591,75 @@ def make_phase_macro(cfg: EngineConfig, state: EngineState, use, r, tr
         v = _get(ps, i)
         v2 = apply_macro(cfg, v, r[:, i], tr[:, i])
         ps = _put(ps, i, v2, ~v.dead & use[:, i], base=v)
+    return state.replace(players=ps)
+
+
+def make_phase_place(cfg: EngineConfig, state: EngineState, use, r_rel,
+                     x_target) -> EngineState:
+    """make_actions with column-targeted placements."""
+    return make_phase(cfg, state, use, _full_kind(use, PLACE), r_rel,
+                      x_target, torch.zeros_like(r_rel))
+
+
+def make_phase_pose(cfg: EngineConfig, state: EngineState, use, rot_abs,
+                    col, y) -> EngineState:
+    """make_actions with direct pose locks."""
+    return make_phase(cfg, state, use, _full_kind(use, POSE), rot_abs, col,
+                      y)
+
+
+def apply_key(cfg: EngineConfig, v: PlayerState, key) -> PlayerState:
+    """One raw key code per game (PythonHandle.cpp:73-112): 0 nothing,
+    1 left, 2 far left, 3 right, 4 far right, 5 down, 6 far down, 7 hard
+    drop (the make half), 8 cw, 9 ccw, 10 flip; other codes do nothing.
+    Every branch is computed and the game's own is selected."""
+    ext = K.ext_board(cfg, v.occ)
+
+    def mv(dx, dy):
+        _, px, py = K.try_move(cfg, ext, v.cur_rows, v.px, v.py, dx, dy)
+        return v.replace(px=px, py=py)
+
+    def far(direction):
+        d = K.slide_distance(cfg, ext, v.cur_rows, v.px, v.py, direction)
+        return v.replace(px=v.px + direction * d)
+
+    def rot(turns):
+        _, r2, px2, py2, rows2 = K.try_rotate(cfg, ext, v.piece, v.rot, v.px,
+                                              v.py, turns, v.cur_rows)
+        return v.replace(rot=r2, px=px2, py=py2, cur_rows=rows2)
+
+    def far_down():
+        # 'while (mDown());': each success resets the lockdown, the final
+        # failing attempt re-arms it
+        d = K.drop_distance(cfg, ext, v.cur_rows, v.px, v.py)
+        x = v.replace(py=v.py + d,
+                      drop_delay_time=torch.where(d > 0, v.time_ms,
+                                                  v.drop_delay_time),
+                      lockdown=v.lockdown & (d <= 0))
+        return _game_mdown(cfg, x)[0]
+
+    branches = {1: lambda: mv(-1, 0), 2: lambda: far(-1),
+                3: lambda: mv(1, 0), 4: lambda: far(+1),
+                5: lambda: _game_mdown(cfg, v)[0], 6: far_down,
+                7: lambda: _hd_make(cfg, v), 8: lambda: rot(1),
+                9: lambda: rot(3), 10: lambda: rot(2)}
+    out = v
+    for code, branch in branches.items():
+        out = _merge(key == code, branch(), out)
+    return out
+
+
+def make_phase_keys(cfg: EngineConfig, state: EngineState, keys
+                    ) -> EngineState:
+    """make_actions with raw key sequences, keys (N, P, K), 0-padded (key
+    0 does nothing); every living player presses its keys."""
+    ps = state.players
+    for i in range(cfg.n_players):
+        v = _get(ps, i)
+        v2 = v
+        for k in range(keys.shape[2]):
+            v2 = apply_key(cfg, v2, keys[:, i, k])
+        ps = _put(ps, i, v2, ~v.dead, base=v)
     return state.replace(players=ps)
 
 
@@ -576,15 +722,49 @@ def _narrow(ps: PlayerState) -> PlayerState:
                          for f in _U32_VIEW_FIELDS})
 
 
-def step_macro(cfg: EngineConfig, state: EngineState, use, r, tr, dt: int
-               ) -> EngineState:
-    """One engine tick with macro actions (make + finish) for every game;
-    games whose round is already over are left as they are.  use/r/tr are
-    (N, P)."""
+def _tick(cfg: EngineConfig, state: EngineState, make, dt: int
+          ) -> EngineState:
+    """make phase + finish phase for every game; games whose round is
+    already over are left as they are."""
     wide = state.replace(players=_widen(state.players))
-    new = finish_phase(cfg, make_phase_macro(cfg, wide, use, r, tr), dt)
+    new = finish_phase(cfg, make(wide), dt)
     new = new.replace(players=_narrow(new.players))
     return tree_map(lambda a, b: _sel(state.round_over, a, b), state, new)
+
+
+def step_macro(cfg: EngineConfig, state: EngineState, use, r, tr, dt: int
+               ) -> EngineState:
+    """One engine tick with macro actions (make + finish) for every game.
+    use/r/tr are (N, P)."""
+    return _tick(cfg, state,
+                 lambda s: make_phase_macro(cfg, s, use, r, tr), dt)
+
+
+def step_place(cfg: EngineConfig, state: EngineState, use, r_rel, x_target,
+               dt: int) -> EngineState:
+    """One engine tick with column-targeted placements."""
+    return _tick(cfg, state, lambda s: make_phase_place(cfg, s, use, r_rel,
+                                                        x_target), dt)
+
+
+def step_pose(cfg: EngineConfig, state: EngineState, use, rot_abs, col, y,
+              dt: int) -> EngineState:
+    """One engine tick with direct pose locks."""
+    return _tick(cfg, state,
+                 lambda s: make_phase_pose(cfg, s, use, rot_abs, col, y), dt)
+
+
+def step_mixed(cfg: EngineConfig, state: EngineState, use, kind, r, t, y,
+               dt: int) -> EngineState:
+    """One engine tick with each game's own kind of action (make_phase)."""
+    return _tick(cfg, state,
+                 lambda s: make_phase(cfg, s, use, kind, r, t, y), dt)
+
+
+def step_keys(cfg: EngineConfig, state: EngineState, keys, dt: int
+              ) -> EngineState:
+    """One engine tick with raw key sequences (N, P, K)."""
+    return _tick(cfg, state, lambda s: make_phase_keys(cfg, s, keys), dt)
 
 
 # ---------------------------------------------------------------------------

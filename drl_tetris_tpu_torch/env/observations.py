@@ -6,7 +6,8 @@ state_unpack.py).  Per player the vector observation is
 ``[x, y, incoming_lines, combo_time, combo_count, nextpiece(7)]``; the field
 is the visual input; the perspective stack for player p is [p, 1-p].
 
-Mirror augmentation of training batches is ``algos/ppo.augment_batch``.
+Mirror augmentation of training batches is ``algos/ppo.augment_batch``;
+``observe(..., mirrored=True)`` is the mirrored observation of a state.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from drl_tetris_tpu_torch.engine.core import EngineConfig, EngineState
 from drl_tetris_tpu_torch.engine.rng import u32
 
 # L<->J, S<->Z under horizontal reflection (trajectory.py:89); the port's
-# own copy, used by the mirror augmentation (algos/ppo.augment_batch).
+# own copy, used by the mirror augmentation (algos/ppo.augment_batch) and
+# the mirrored observation.
 PIECE_SWAP_NP = np.asarray([1, 0, 3, 2, 4, 5, 6], dtype=np.int32)
 
 
@@ -43,8 +45,22 @@ def _take(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return a.gather(1, idx)[:, 0]
 
 
-def player_vector(cfg: EngineConfig, state: EngineState, p) -> torch.Tensor:
-    """(N, 12) scalar observation of player index array p (N,)."""
+_SWAP = {}
+
+
+def _swap_pieces(pc: torch.Tensor) -> torch.Tensor:
+    """L<->J and S<->Z piece ids (PIECE_SWAP_NP)."""
+    dev = pc.device
+    if dev not in _SWAP:
+        _SWAP[dev] = torch.as_tensor(PIECE_SWAP_NP, device=dev)
+    return _SWAP[dev][pc.long()].to(pc.dtype)
+
+
+def player_vector(cfg: EngineConfig, state: EngineState, p,
+                  mirrored: bool = False) -> torch.Tensor:
+    """(N, 12) scalar observation of player index array p (N,); mirrored
+    swaps the next piece's id (x stays unmirrored, as in the
+    reference)."""
     ps = state.players
     f32 = torch.float32
     x = (_take(ps.px, p) & 0xFF).to(f32)
@@ -54,18 +70,27 @@ def player_vector(cfg: EngineConfig, state: EngineState, p) -> torch.Tensor:
                    100, rounding_mode="floor").to(f32)
     cc = _take(ps.combo_count, p).to(f32)
     nxt = _take(ps.nextpiece, p)
+    if mirrored:
+        nxt = _swap_pieces(nxt)
     nxt1h = (nxt[:, None] == torch.arange(7, device=nxt.device)).to(f32)
     return torch.cat([x[:, None], y[:, None], inc[:, None], ct[:, None],
                       cc[:, None], nxt1h], dim=-1)
 
 
-def observe(cfg: EngineConfig, state: EngineState, player) -> Obs:
-    """The two-perspective observation for ``player`` (N,) int."""
+def observe(cfg: EngineConfig, state: EngineState, player,
+            mirrored: bool = False) -> Obs:
+    """The two-perspective observation for ``player`` (N,) int; mirrored
+    flips the fields horizontally and swaps L/J and S/Z ids (piece_swap,
+    trajectory.py:89)."""
     ps = state.players
     me = player.to(torch.int32)
     order = (me, 1 - me)
-    vec = torch.stack([player_vector(cfg, state, o) for o in order], dim=1)
+    vec = torch.stack([player_vector(cfg, state, o, mirrored)
+                       for o in order], dim=1)
     grids = field_grid(cfg, ps.occ)                       # (N, P, H, W)
+    if mirrored:
+        grids = grids.flip(-1)
     vis = torch.stack([_take(grids, o) for o in order], dim=1)[..., None]
-    piece = torch.stack([_take(ps.piece, o) for o in order], dim=1)
+    pc = _swap_pieces(ps.piece) if mirrored else ps.piece
+    piece = torch.stack([_take(pc, o) for o in order], dim=1)
     return Obs(vec=vec, vis=vis, piece=piece)

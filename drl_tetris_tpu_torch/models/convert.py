@@ -1,11 +1,14 @@
 """Flax parameter trees and train states <-> PyTorch state dicts.
 
-``params_from_flax`` takes the JAX package's PPONet or QNet params as a
-nested dict of numpy arrays (what ``drl_tetris_tpu.runtime.checkpoint
-.restore_raw`` returns under 'params'; no JAX is needed to convert) and
-returns a ``state_dict`` for ``PPONet`` or ``QNet`` (both wrap the trunk
-that the architecture names, so their trees and names are the same);
-``params_to_flax`` is its inverse.  ``ppo_state_from_flax`` and
+``params_from_flax`` takes the JAX package's PPONet, QNet, VNet (SIXten) or
+SherlockNet params as a nested dict of numpy arrays (what
+``drl_tetris_tpu.runtime.checkpoint.restore_raw`` returns under 'params';
+no JAX is needed to convert) and returns a ``state_dict`` for ``PPONet`` or
+``QNet`` (both wrap the trunk that the architecture names, so their trees
+and names are the same), ``algos/sixten.VNet`` (ResidualBlock_{0..4} ->
+vis_tower.{0,1}, join_tower.{0,1}, value_tower) or
+``algos/sherlock.SherlockNet`` (SventonNet_0 -> trunk.*, ResidualBlock_0
+-> phi_tower, Conv_0 -> phi_conv); ``params_to_flax`` is its inverse.  ``ppo_state_from_flax`` and
 ``ppo_state_to_flax`` carry a whole JAX ``PPOState`` (params, optax Adam
 state, compressors, update count; with trainer-computed targets the
 reference params and their countdown) to and from the port's learner
@@ -118,22 +121,24 @@ def _flax_module(table, module: str) -> Tuple[str, ...]:
     raise KeyError(f"unmapped PPONet module {module}")
 
 
-def params_from_flax(params) -> Dict[str, torch.Tensor]:
-    """Convert a flax PPONet or QNet param tree (nested dicts of arrays,
-    with or without the top 'params' key) to the port net's
-    state_dict."""
-    tree = dict(params)
-    if "params" in tree:
-        tree = dict(tree["params"])
-    (trunk, body), = tree.items()
-    if trunk not in _TRUNKS:
-        raise KeyError(f"not a PPONet or QNet trunk: {trunk}")
-    table = _module_table(trunk, body)
+# VNet (SIXten): its blocks sit at the top of the tree; SherlockNet: the
+# SventonNet trunk, then the phi head's block and conv
+_VNET = {("ResidualBlock_0",): "vis_tower.0",
+         ("ResidualBlock_1",): "vis_tower.1",
+         ("ResidualBlock_2",): "join_tower.0",
+         ("ResidualBlock_3",): "join_tower.1",
+         ("ResidualBlock_4",): "value_tower"}
+_PHI = {("ResidualBlock_0",): "phi_tower", ("Conv_0",): "phi_conv"}
+
+
+def _body_from_flax(table, body, prefix: str) -> Dict[str, torch.Tensor]:
+    """state_dict entries (under ``prefix``) of a flax module tree whose
+    modules ``table`` maps."""
     sd = {}
     for path, value in _flatten(dict(body)):
         a = np.asarray(value, dtype=np.float32)
         leaf = path[-1]
-        base = "trunk." + _port_module(table, path[:-1])
+        base = prefix + _port_module(table, path[:-1])
         if leaf == "kernel":
             a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
             sd[base + ".weight"] = torch.from_numpy(np.array(a, order="C"))
@@ -144,6 +149,27 @@ def params_from_flax(params) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unmapped flax param {'/'.join(path)}")
     return sd
+
+
+def params_from_flax(params) -> Dict[str, torch.Tensor]:
+    """Convert a flax PPONet, QNet, VNet or SherlockNet param tree (nested
+    dicts of arrays, with or without the top 'params' key) to the port
+    net's state_dict."""
+    tree = dict(params)
+    if "params" in tree:
+        tree = dict(tree["params"])
+    if set(tree) == {"SventonNet_0", "ResidualBlock_0", "Conv_0"}:
+        body = tree.pop("SventonNet_0")
+        sd = _body_from_flax(_module_table("SventonNet_0", body), body,
+                             "trunk.")
+        sd.update(_body_from_flax(_PHI, tree, ""))
+        return sd
+    if tree and all(k in {m[0] for m in _VNET} for k in tree):
+        return _body_from_flax(_VNET, tree, "")
+    (trunk, body), = tree.items()
+    if trunk not in _TRUNKS:
+        raise KeyError(f"not a PPONet or QNet trunk: {trunk}")
+    return _body_from_flax(_module_table(trunk, body), body, "trunk.")
 
 
 def _port_trunk(names) -> Tuple[str, Tuple[str, ...]]:
@@ -159,34 +185,48 @@ def _port_trunk(names) -> Tuple[str, Tuple[str, ...]]:
     return trunk, tuple(f"Dense_{i}" for i in range(n_dense))
 
 
-def params_to_flax(state_dict) -> Dict[str, Any]:
-    """A PPONet or QNet state_dict (tensors or arrays) as the flax param
-    tree ``{'params': {<trunk>_0: ...}}`` of numpy float32 arrays: the
-    inverse of ``params_from_flax``."""
-    for name in state_dict:
-        if not name.startswith("trunk."):
-            raise KeyError(f"not a PPONet parameter: {name}")
-    trunk, modules = _port_trunk(state_dict)
-    table = _module_table(trunk, modules)
-    tree: Dict[str, Any] = {}
-    for name, value in state_dict.items():
+def _body_to_flax(table, items, root, tree) -> None:
+    """Write state_dict ``items`` ((name without prefix, value)) into the
+    flax ``tree`` under the path ``root``."""
+    for name, value in items:
         a = np.asarray(value.detach().cpu() if torch.is_tensor(value)
                        else value, dtype=np.float32)
-        module, leaf = name[len("trunk."):].rsplit(".", 1)
-        path = [trunk, *_flax_module(table, module)]
+        module, leaf = name.rsplit(".", 1)
+        path = [*root, *_flax_module(table, module)]
         if leaf == "bias":
             path.append("bias")
         elif leaf == "weight":
-            path.append("scale" if path[-2] == "LayerNorm_0"
+            path.append("scale" if path[-1] == "LayerNorm_0"
                         else "kernel")
             if path[-1] == "kernel":
                 a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         else:
-            raise KeyError(f"unmapped PPONet parameter {name}")
+            raise KeyError(f"unmapped parameter {name}")
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = np.ascontiguousarray(a)
+
+
+def params_to_flax(state_dict) -> Dict[str, Any]:
+    """A PPONet, QNet, VNet or SherlockNet state_dict (tensors or arrays)
+    as the flax param tree ``{'params': ...}`` of numpy float32 arrays: the
+    inverse of ``params_from_flax``."""
+    tree: Dict[str, Any] = {}
+    trunk_items = [(n[len("trunk."):], v) for n, v in state_dict.items()
+                   if n.startswith("trunk.")]
+    rest = [(n, v) for n, v in state_dict.items()
+            if not n.startswith("trunk.")]
+    if not trunk_items:                                  # VNet
+        _body_to_flax(_VNET, rest, [], tree)
+        return {"params": tree}
+    trunk, modules = _port_trunk(state_dict if not rest else
+                                 {"trunk." + n: v for n, v in trunk_items})
+    _body_to_flax(_module_table(trunk, modules), trunk_items, [trunk], tree)
+    if rest:                                             # SherlockNet
+        if trunk != "SventonNet_0":
+            raise KeyError(f"a phi head on a {trunk} trunk")
+        _body_to_flax(_PHI, rest, [], tree)
     return {"params": tree}
 
 

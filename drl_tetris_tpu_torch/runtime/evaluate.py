@@ -17,9 +17,16 @@ so their games match JAX's only in distribution; epsilon-greedy agents
 follow JAX's key chain (``PRNGKey(seed + 1)``, one split per chunk of 8
 ticks, one per tick, one per seat), so their games are JAX's.
 
-Action-head agents (``kind="macro"``: PPONet and QNet) are ported: the
-world-model and Sherlock kinds wait for the placement masks and their
-agents (ROADMAP 11, 13), and rendering waits for ROADMAP 15.
+Agents of every kind meet: ``macro`` (PPONet and QNet, the (r, t) macro),
+``world_model`` and ``world_model_full`` (SIXten's VNet, one-ply search
+over the top-drop or the full placement set), ``sherlock`` and
+``sherlock_full`` (SherlockNet's phi.delta placements).  Each tick, each
+game takes the acting agent's make phase: one launch of the one-tick
+entry, its macro-only instantiation when both agents are macro agents,
+else its per-kind one (the JAX package's step, step_place, step_pose and
+step_mixed* dispatch).  World-model and Sherlock agents draw from JAX's
+key chain whatever their distribution (``pi`` is SIXten's ``boltzmann``),
+so their games are JAX's.  Rendering waits for ROADMAP 15.
 """
 from __future__ import annotations
 
@@ -33,30 +40,61 @@ import torch
 from drl_tetris_tpu_torch.algos.rollout import (EPSILON_DISTRIBUTIONS,
                                                 make_policy_fn)
 from drl_tetris_tpu_torch.engine import rng
+from drl_tetris_tpu_torch.engine import step as S
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
 from drl_tetris_tpu_torch.utils.scoreboard import Scoreboard
 
 CHUNK = 8    # ticks between winner reads (evaluate.py:172-186)
+KINDS = ("macro", "world_model", "world_model_full", "sherlock",
+         "sherlock_full")
 
 
 @dataclasses.dataclass
 class EvalAgent:
-    """An entrant: ``net`` is a PPONet or QNet holding the agent's weights
-    (on the device the matches run on)."""
+    """An entrant: ``net`` holds the agent's weights (on the device the
+    matches run on): a PPONet or QNet for ``kind="macro"``, a VNet for
+    "world_model"/"world_model_full", a SherlockNet for
+    "sherlock"/"sherlock_full" (the "_full" kinds act on the top-drop and
+    finesse placements through pose locks, the others on the top-drop
+    grid)."""
     name: str
     net: torch.nn.Module
     distribution: str = "argmax"   # eval_distribution (presets.py:128)
-    # "macro": action-head nets emitting the (r, t) macro; the JAX
-    # package's "world_model*" and "sherlock*" kinds are not ported
     kind: str = "macro"
     epsilon: float = 0.05          # for the epsilon distributions
 
 
-def _check_agent(agent: EvalAgent):
-    if agent.kind != "macro":
-        raise NotImplementedError(
-            f"{agent.name}: kind {agent.kind!r} agents wait for the "
-            "placement masks and their agents (ROADMAP 11, 13)")
+def _agent_policy(env, agent: EvalAgent):
+    """(policy(st, generator, key) -> (r, t, y), its make phase, whether
+    it reads the key)."""
+    if agent.kind not in KINDS:
+        raise ValueError(f"{agent.name}: unknown kind {agent.kind!r}")
+    full = agent.kind.endswith("_full")
+    space = "full" if full else "top_drop"
+    if agent.kind == "macro":
+        pol = make_policy_fn(env, agent.net, agent.distribution,
+                             epsilon=agent.epsilon)
+
+        def act(st, generator, key):
+            _, _, r, t, *_ = pol(st, generator, key=key)
+            return r, t, torch.zeros_like(r)
+        return act, S.MACRO, agent.distribution in EPSILON_DISTRIBUTIONS
+    if agent.kind.startswith("world_model"):
+        from drl_tetris_tpu_torch.algos.sixten import make_sixten_policy
+        d = {"pi": "boltzmann"}.get(agent.distribution, agent.distribution)
+        pol = make_sixten_policy(env, agent.net, d, agent.epsilon, space)
+    else:
+        from drl_tetris_tpu_torch.algos.sherlock import make_sherlock_policy
+        pol = make_sherlock_policy(env, agent.net, agent.distribution,
+                                   agent.epsilon, space)
+
+    def act(st, generator, key):
+        out = pol(st, key)
+        if full:
+            return out[2], out[3], out[4]
+        return out[2], out[3], torch.zeros_like(out[2])
+    return act, (S.POSE if full else S.PLACE), \
+        agent.distribution != "argmax"
 
 
 def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
@@ -66,15 +104,13 @@ def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
     unfinished).  The games run on agents[0]'s device."""
     if render:
         raise NotImplementedError("rendering waits for ROADMAP 15")
-    for a in agents:
-        _check_agent(a)
     dev = next(agents[0].net.parameters()).device
     env = TetrisVectorEnv(env_cfg, n_games, device=dev)
-    policies = [make_policy_fn(env, a.net, a.distribution,
-                               epsilon=a.epsilon) for a in agents]
+    (act0, kind0, keyed0), (act1, kind1, keyed1) = [
+        _agent_policy(env, a) for a in agents]
     st = env.reset(seed)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
-    keyed = any(a.distribution in EPSILON_DISTRIBUTIONS for a in agents)
+    keyed = keyed0 or keyed1
     key = rng.prng_key(seed + 1, dev)
     seat_keys = (None, None)
     finished = np.zeros(n_games, bool)
@@ -88,12 +124,17 @@ def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
             for i in range(CHUNK):
                 if keyed:
                     seat_keys = rng.split(tick_keys[i])
-                (_, _, r0, t0, *_), (_, _, r1, t1, *_) = [
-                    p(st, generator, key=k)
-                    for p, k in zip(policies, seat_keys)]
+                (r0, t0, y0), (r1, t1, y1) = (
+                    act0(st, generator, seat_keys[0]),
+                    act1(st, generator, seat_keys[1]))
                 mine = st.current_player == 0
-                st, _, done = env.step(st, torch.where(mine, r0, r1),
-                                       torch.where(mine, t0, t1))
+                r, t = torch.where(mine, r0, r1), torch.where(mine, t0, t1)
+                if kind0 == kind1 == S.MACRO:
+                    st, _, done = env.step(st, r, t)
+                else:
+                    st, _, done = env.step_kinds(
+                        st, torch.where(mine, kind0, kind1), r, t,
+                        torch.where(mine, y0, y1))
                 done_any |= done
             d, w = torch.stack([done_any.to(torch.int32),
                                 env.get_winner(st).to(torch.int32)]

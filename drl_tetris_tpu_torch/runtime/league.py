@@ -22,7 +22,8 @@ from drl_tetris_tpu_torch.utils.elo import LeagueHistory
 def random_anchor(net: torch.nn.Module, seed: int = 0xE10
                   ) -> torch.nn.Module:
     """The league's random anchor for a run of ``net``: a full net of its
-    class (PPONet or QNet), model and board, on its device, with fresh
+    class (PPONet, QNet, VNet or SherlockNet), model and board, on its
+    device, with fresh
     flax-distributed weights from ``torch.Generator().manual_seed(seed)``
     (the JAX package inits its anchor from ``PRNGKey(0xE10)``)."""
     dev = next(net.parameters()).device
@@ -50,9 +51,12 @@ class TrainingLeague:
         self.pool: Deque[EvalAgent] = collections.deque(maxlen=max_pool)
         self.history = LeagueHistory(out_dir=out_dir, anchor="random")
         # the anchor plays at maximum entropy: "pi" sampling for macro
-        # agents
-        self.anchor = EvalAgent(name="random", net=random_net,
-                                distribution="pi", kind=kind)
+        # agents, uniform over the legal placements for world-model and
+        # Sherlock agents
+        self.anchor = EvalAgent(
+            name="random", net=random_net,
+            distribution="pi" if kind == "macro" else "epsilon", kind=kind,
+            epsilon=1.0)
         self.history.steps["random"] = 0
         # External fixed anchors (e.g. a strong reference checkpoint):
         # permanent entrants that every snapshot plays, which makes ratings

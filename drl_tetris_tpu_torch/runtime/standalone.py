@@ -234,10 +234,12 @@ class _PhaseClock:
             self.marks.append((name, time.perf_counter()))
 
     def spans_ms(self) -> dict:
-        """{phase: ms} between consecutive marks (the device is synced)."""
+        """{phase: ms} between consecutive marks, summed over the spans
+        that end in the same name (the device is synced)."""
         out = {}
         for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+            ms = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+            out[name] = out.get(name, 0.0) + ms
         return out
 
 
@@ -481,38 +483,11 @@ class StandaloneDQNConfig:
     seed: int = 0
 
 
-class StandaloneDQNTrainer(_DQNActing):
-    """SVENton-DQN in one process: epsilon-greedy (or pareto) rollouts into
-    the on-device prioritized replay, k-step lambda targets through the
-    reference net, IS-weighted Q updates (sventon_agent_dqn_trainer.py).
-    Initial weights: flax's initialisers from a ``torch.Generator`` seeded
-    with ``seed``, as the PPO trainer's."""
-
-    def __init__(self, cfg: StandaloneDQNConfig, device=None):
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        e = cfg.env.engine
-        self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
-        self.net = QNet(cfg.model, board=(e.height, e.width),
-                        full_network=True, device=self.device)
-        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
-        self.rollout = make_rollout_fn(
-            self.env, self.net, cfg.horizon,
-            distribution=cfg.train_distribution,
-            epsilon=param_eval(cfg.epsilon))
-        self.init_opt, self.update = make_dqn_update(e, self.net, cfg.dqn,
-                                                     cfg.replay)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
-        key = rng.prng_key(cfg.seed, self.device)
-        self.key, _kinit, kenv = rng.split(key, 3)
-        self.state = self.init_opt(self.net)
-        self.replay = replay_init(cfg.replay, self.device)
-        self.env_state = self.env.reset(kenv)
-        self.total_steps = 0
-        self.stats = {}
-        self.phase_ms = {}
-        self._init_acting()
+class _RefNetLearner:
+    """State handling shared by the learners with a reference net (the
+    DQN and SIXten trainers; ``state`` has net, ref_net, optimizer and
+    update_count): checkpoints, ``--resume`` and ``--init-from``.  The
+    replay is not saved: a resumed run starts it empty."""
 
     def dqn_state_dict(self) -> dict:
         """``dqn_state_dict(self.state)``."""
@@ -547,6 +522,40 @@ class StandaloneDQNTrainer(_DQNActing):
         reference net; Adam stays fresh."""
         self.net.load_params_(params)
         self.state.ref_net.load_params_(params)
+
+
+class StandaloneDQNTrainer(_RefNetLearner, _DQNActing):
+    """SVENton-DQN in one process: epsilon-greedy (or pareto) rollouts into
+    the on-device prioritized replay, k-step lambda targets through the
+    reference net, IS-weighted Q updates (sventon_agent_dqn_trainer.py).
+    Initial weights: flax's initialisers from a ``torch.Generator`` seeded
+    with ``seed``, as the PPO trainer's."""
+
+    def __init__(self, cfg: StandaloneDQNConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        e = cfg.env.engine
+        self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        self.net = QNet(cfg.model, board=(e.height, e.width),
+                        full_network=True, device=self.device)
+        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+        self.rollout = make_rollout_fn(
+            self.env, self.net, cfg.horizon,
+            distribution=cfg.train_distribution,
+            epsilon=param_eval(cfg.epsilon))
+        self.init_opt, self.update = make_dqn_update(e, self.net, cfg.dqn,
+                                                     cfg.replay)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
+        key = rng.prng_key(cfg.seed, self.device)
+        self.key, _kinit, kenv = rng.split(key, 3)
+        self.state = self.init_opt(self.net)
+        self.replay = replay_init(cfg.replay, self.device)
+        self.env_state = self.env.reset(kenv)
+        self.total_steps = 0
+        self.stats = {}
+        self.phase_ms = {}
+        self._init_acting()
 
     def train_iteration(self, gumbel: Optional[torch.Tensor] = None,
                         replay_gumbel: Optional[torch.Tensor] = None):
@@ -789,3 +798,177 @@ class DualPolicyDQNTrainer(_DQNActing, _DualTrainer):
             stats.update({f"policy_{p}/{k}": v for k, v in s.items()})
             clock.mark(f"update_{p}")
         return self._finish_iteration(stats, clock)
+
+
+@dataclasses.dataclass(frozen=True)
+class StandaloneSIXtenConfig:
+    env: EnvConfig = EnvConfig()
+    model: ModelConfig = ModelConfig()
+    replay: ReplayConfig = ReplayConfig()
+    n_envs: int = 16              # SIXten shape (sixten_base.py:29)
+    horizon: int = 32
+    train_distribution: str = "epsilon"
+    epsilon: Any = 0.05           # ParamLike: evaluated per iteration
+    action_temperature: Any = 1.0
+    tau_learning_rate: float = 0.01
+    # "top_drop": the (4, W) mask grid through step_place; "full": the
+    # top-drop and finesse rests through step_pose
+    action_space: str = "top_drop"
+    seed: int = 0
+
+
+class StandaloneSIXtenTrainer(_RefNetLearner, _DQNActing):
+    """SIXten in one process: world-model one-ply search rollouts (V over
+    the successor boards of every legal placement) into the prioritized
+    replay, k-step lambda V-targets through the reference net.  The key
+    chain is JAX's (``key, kroll, kupd = split(key, 3)`` per iteration),
+    and every draw of the rollout and the replay sample follows it; the
+    initial weights are flax's initialisers drawn from a
+    ``torch.Generator`` seeded with ``seed``.  ``phase_ms`` holds the
+    iteration's masks, forward, tick, replay and update times."""
+
+    def __init__(self, cfg: StandaloneSIXtenConfig, sixten_cfg=None,
+                 device=None):
+        from drl_tetris_tpu_torch.algos.sixten import (SixtenConfig, VNet,
+                                                       make_sixten_rollout,
+                                                       make_sixten_update)
+        self.cfg = cfg
+        self.scfg = sixten_cfg or SixtenConfig()
+        self.device = resolve_device(device)
+        e = cfg.env.engine
+        self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        self.net = VNet(cfg.model, board=(e.height, e.width),
+                        device=self.device)
+        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+        self.rollout = make_sixten_rollout(
+            self.env, self.net, cfg.horizon,
+            distribution=cfg.train_distribution,
+            epsilon=param_eval(cfg.epsilon), action_space=cfg.action_space)
+        self.init_opt, self.update = make_sixten_update(e, self.net,
+                                                        self.scfg, cfg.replay)
+        key = rng.prng_key(cfg.seed, self.device)
+        self.key, _kinit, kenv = rng.split(key, 3)
+        self.state = self.init_opt(self.net)
+        self.replay = replay_init(cfg.replay, self.device)
+        self.env_state = self.env.reset(kenv)
+        self.total_steps = 0
+        self.stats = {}
+        self.phase_ms = {}
+        self._init_acting()
+
+    def _alpha_beta(self):
+        t = self.total_steps
+        return (param_eval(self.scfg.alpha, t), param_eval(self.scfg.beta, t))
+
+    def train_iteration(self, replay_gumbel: Optional[torch.Tensor] = None):
+        """One segment into the replay, then one update once the replay
+        holds ``n_samples_each_update`` rows (``replay_gumbel`` (capacity,)
+        replaces the sample's noise).  Returns the latest update's
+        stats."""
+        cfg = self.cfg
+        self.key, kroll, kupd = rng.split(self.key, 3)
+        clock = _PhaseClock(self.device)
+        clock.mark("start")
+        self.env_state, seg, _ = self.rollout(
+            self.env_state, kroll, hp=self._hparams(), mark=clock.mark)
+        self._track_traj_len(seg.done)
+        replay_add_segment(cfg.replay, self.replay, seg, cfg.horizon)
+        clock.mark("replay")
+        self.total_steps += cfg.n_envs * cfg.horizon
+        if self.replay.size >= self.scfg.n_samples_each_update:
+            self.state, self.replay, stats = self.update(
+                self.state, self.replay, kupd, *self._alpha_beta(),
+                replay_gumbel)
+            clock.mark("update")
+            self.stats = fetch_stats(stats)
+        self.phase_ms = clock.spans_ms()
+        return self.stats
+
+
+@dataclasses.dataclass(frozen=True)
+class SherlockTrainerConfig:
+    env: EnvConfig = EnvConfig()
+    model: ModelConfig = ModelConfig()
+    n_envs: int = 16
+    horizon: int = 32
+    action_space: str = "top_drop"   # or "full" (top-drop and finesse)
+    seed: int = 0
+
+
+class StandaloneSherlockTrainer:
+    """Sherlock (delta-PPO) self-play in one process: the phi.delta
+    rollout (one launch of the engine kernel's per-kind entry per tick),
+    GAE, and the delta-PPO update with torch.optim.Adam.  The key chain
+    and every draw are JAX's; the initial weights are flax's initialisers
+    from a ``torch.Generator`` seeded with ``seed``.  ``phase_ms`` holds
+    the masks, forward, tick, gae and update times."""
+
+    def __init__(self, cfg: SherlockTrainerConfig, sherlock_cfg=None,
+                 device=None):
+        from drl_tetris_tpu_torch.algos.sherlock import (
+            SherlockConfig, SherlockNet, make_sherlock_rollout,
+            make_sherlock_update)
+        self.cfg = cfg
+        self.scfg = sherlock_cfg or SherlockConfig()
+        self.device = resolve_device(device)
+        e = cfg.env.engine
+        self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        self.net = SherlockNet(cfg.model, board=(e.height, e.width),
+                               device=self.device)
+        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+        self.rollout = make_sherlock_rollout(self.env, self.net, cfg.horizon,
+                                             action_space=cfg.action_space)
+        self.init_opt, self.update = make_sherlock_update(e, self.net,
+                                                          self.scfg)
+        key = rng.prng_key(cfg.seed, self.device)
+        self.key, _kinit, kenv = rng.split(key, 3)
+        self.state = self.init_opt(self.net)
+        self.env_state = self.env.reset(kenv)
+        self.total_steps = 0
+        self.stats = {}
+        self.phase_ms = {}
+
+    def state_dict(self) -> dict:
+        """The net, Adam, ``update_count``, ``total_steps`` and the key."""
+        return {"params": self.net.state_dict(),
+                "adam": adam_state_dict(self.net, self.state.optimizer),
+                "update_count": int(self.state.update_count),
+                "total_steps": int(self.total_steps), "key": self.key}
+
+    def _load_learner(self, sd: dict):
+        self.net.load_params_(sd["params"])
+        load_adam_state(self.net, self.state.optimizer, sd["adam"])
+        self.state.update_count = int(sd["update_count"])
+
+    def load_state_dict(self, sd: dict):
+        self._load_learner(sd)
+        self.total_steps = int(sd["total_steps"])
+        self.key = torch.as_tensor(sd["key"]).to(self.device, torch.int64)
+
+    def resume(self, state: dict, step: int):
+        """``train --resume``: the learner's state, ``total_steps = step``,
+        ``fold_in(key, step)``; the games reset."""
+        self._load_learner(state)
+        self.total_steps = int(step)
+        self.key = rng.fold_in(self.key, int(step))
+
+    def init_params(self, params: dict):
+        """``train --init-from``: the weights; Adam stays fresh."""
+        self.net.load_params_(params)
+
+    def train_iteration(self):
+        from drl_tetris_tpu_torch.algos.sherlock import \
+            sherlock_segment_to_batch
+        self.key, kroll, kupd = rng.split(self.key, 3)
+        clock = _PhaseClock(self.device)
+        clock.mark("start")
+        self.env_state, seg, v_last = self.rollout(self.env_state, kroll,
+                                                   mark=clock.mark)
+        batch, _ = sherlock_segment_to_batch(self.scfg, seg, v_last)
+        clock.mark("gae")
+        self.state, stats = self.update(self.state, batch, kupd)
+        clock.mark("update")
+        self.total_steps += self.cfg.n_envs * self.cfg.horizon
+        self.stats = fetch_stats(stats)
+        self.phase_ms = clock.spans_ms()
+        return self.stats

@@ -119,12 +119,10 @@ def test_print_config(session):
     (["train", "--distributed", "--device", "cpu"], "ROADMAP 14"),
     (["worker"], "ROADMAP 14"),
     (["kv"], "ROADMAP 14"),
-    (["train", "--device", "cpu", "--presets", "default", "sventon",
-      "experiment_sixten"], "ROADMAP 13"),
-    (["train", "--device", "cpu", "--presets", "default", "sherlock"],
-     "ROADMAP 13"),
-    (["train", "--device", "cpu", "--set", "flavour=sixten"],
-     "ROADMAP 13"),
+    (["trainer"], "ROADMAP 14"),
+    (["train", "--multihost", "--device", "cpu"], "ROADMAP 14"),
+    (["train", "--distributed", "--device", "cpu", "--presets", "default",
+      "sventon", "sventon_dqn", "experiment_sixten"], "ROADMAP 14"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=item):

@@ -10,6 +10,7 @@ Elo and scoreboard (utils/) against the JAX package's.
   key chain) against an ``argmax`` PPONet, 4 games per pair.
 * The training league snapshots, plays the random anchor, its fixed
   anchors and its pool, and appends one refit per evaluation to ``elo_history.jsonl``.
+* An unknown agent kind and rendering raise.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
@@ -179,12 +180,16 @@ def test_epsilon_qnet_round_robin_matches_jax():
 
 
 def test_unported_kinds_and_render_raise():
+    """Every kind of the JAX package is played (tests/
+    test_torch_cli_world_model.py); an unknown kind and rendering raise."""
     net = port_net(board_params(3))
     env = EnvConfig(engine=EngineConfig(height=H, width=W))
     a = evaluate.EvalAgent("a", net)
-    for kind in ("world_model", "sherlock_full"):
-        with pytest.raises(NotImplementedError, match="ROADMAP 11, 13"):
-            evaluate.play_match(env, (a, dataclasses.replace(a, kind=kind)))
+    assert set(evaluate.KINDS) == {"macro", "world_model",
+                                   "world_model_full", "sherlock",
+                                   "sherlock_full"}
+    with pytest.raises(ValueError, match="unknown kind"):
+        evaluate.play_match(env, (a, dataclasses.replace(a, kind="keys")))
     with pytest.raises(NotImplementedError, match="ROADMAP 15"):
         evaluate.round_robin(env, [a, a], render=True)
 

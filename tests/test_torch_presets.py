@@ -50,7 +50,8 @@ SIDE_FILES = sorted(glob.glob(os.path.join(REPO, "data", "**",
 
 
 def assert_same_config(got, ref):
-    for part in ("env", "model", "ppo", "dqn", "replay"):
+    for part in ("env", "model", "ppo", "dqn", "sixten", "sherlock",
+                 "replay"):
         assert dataclasses.asdict(getattr(got, part)) == \
             dataclasses.asdict(getattr(ref, part)), part
     for f in ("flavour", "n_envs", "train_distribution", "eval_distribution",
