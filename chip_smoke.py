@@ -13,8 +13,10 @@ points a user calls, and times them:
 2. kernel vs plain, every state leaf equal:
    - the T-tick entry with replayed actions (1024 games x 64 ticks),
    - the T-tick entry with in-kernel random actions (block_games 128),
-   - the one-tick entry over 64 ticks, with reward and done (the plain
-     chain runs once: the T-tick entry is held against its last state),
+   - the one-tick entry over 64 ticks, with reward and done, each tick
+     against the plain tick from the same state (``hold_ticks``, batched
+     along the game axis; the T-tick entry is held against the chain's
+     last state),
    - both entries at the kernel's limits (height 32, width 25, garbage
      cap 64) from a start state with crowded garbage FIFOs, and at a
      ragged game count (1001 games: the last CUDA block of 4 games holds
@@ -27,12 +29,16 @@ points a user calls, and times them:
    TetrisVectorEnv(EnvConfig(), 1024) and PPONet(ModelConfig()) at full
    width in bfloat16, weights drawn from a numpy seed, horizon 64.  The
    one-tick entry must launch exactly once per tick; the trajectory is
-   replayed through the plain engine and must agree; the net at float32
+   replayed through the one-tick entry, every tick held against the plain
+   engine, and must agree; the net at float32
    agrees with the CPU on a few boards;
 4. the training iteration, the main path: StandaloneTrainer with the
    r5_learning settings (config.load), 1024 games x horizon 64, minibatch
-   64, 4 epochs (4,096 Adam steps), the full-width bf16 net from
-   flax-matched initial weights.  One warm-up iteration at the same
+   64, TRAIN_EPOCHS (2) of the recipe's 4 epochs (2,048 Adam steps; a
+   cut: at 4 epochs the script took 1,215.6 s on an H100 80GB HBM3 at
+   700 W whose host ran 39 ms an Adam step; ``bench`` times the whole
+   recipe), the full-width bf16
+   net from flax-matched initial weights.  One warm-up iteration at the same
    shapes with its update cut to 64 minibatch steps of one epoch (the cut
    that keeps the later phases inside the time limit), then one timed
    iteration: the one-tick entry must launch exactly 64 times in it, every
@@ -144,9 +150,35 @@ points a user calls, and times them:
    update) and Sherlock (top-drop, a league round), and starts its
    processes in three stages of concurrent processes (the first train of
    every run; the two resumes; the two evals);
-10. the engine path (the random-policy throughput run): the T-tick entry
+10. the rest of the JAX package's paths, at the command line's default
+   stack (the full-width 'silver' PPONet, bf16), after phase_demo:
+   - phase_play: ``play`` of phase_cli's PPO run against its pool run
+     through the command line's entry point in this process: one ANSI
+     frame per tick with both probe lines, one one-tick launch per tick,
+     each tick held against the plain version;
+   - phase_process: a tetrikv server, a WorkerRunner and a TrainerRunner
+     in this process, PROC_ENVS x PROC_HORIZON segments, a segment then
+     an update (PROC_SAMPLES samples, 512 Adam steps) twice, every worker
+     tick held against the plain version; a fresh worker recovers the
+     persisted state and validates its checksum, a tampered checksum is
+     refused; then ``up --workers 2 --updates 2 --chaos`` as processes,
+     every role on the card, each worker but the victim one segment
+     (unbounded, two workers outrun the trainer and its second update
+     trains on all it drained): worker 0 runs until the SIGTERM and must
+     persist its state on that signal, and its replacement must reclaim
+     the slot and recover that state in its own process (the checksum of
+     a forward under deterministic cuDNN); the trainer's seconds per
+     update, the workers' env-steps/s and each role's start-up;
+   - phase_distributed: ``train --distributed`` (NCCL, world size 1) at
+     DIST_ENVS x DIST_HORIZON, one iteration, in this process: every tick
+     held against the plain version, the loss finite, the parameters
+     moved;
+   - phase_bench: ``bench --no-train`` as a subprocess (its JSON keys, both
+     engine rates positive) and the package's training bench in this
+     process at BENCH_TRAIN (one timed iteration after a warm one);
+11. the engine path (the random-policy throughput run): the T-tick entry
    at 4096 boards with in-kernel random actions;
-11. times: kernel, plain version and bound of each entry at the shape its
+12. times: kernel, plain version and bound of each entry at the shape its
    path gives it (the timed kernel and plain outputs are held equal too),
    the rollout's env-steps/s.  The bound is the larger of the bytes side
    (state read and written once over the memory rate) and the operations
@@ -171,6 +203,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -191,10 +224,11 @@ N_RAGGED, T_EXTRA = 1001, 48       # ragged game count (its last block of 4
                                    # games has 1); ticks of the extra
                                    # comparisons
 DEV = "cuda"
-TRAIN_EPOCHS = 4                   # the recipe's; a cut is printed
+TRAIN_EPOCHS = 2                   # [train]'s epochs, the recipe's 4 cut
+                                   # to keep the script inside its limit
+                                   # on a slow host (printed)
 WARM_MINIBATCHES = 64              # the PPO warm-up updates' depth (cut)
 TRAIN_SEED = 7
-H100_BF16_FLOPS = 989e12           # dense bf16 peak, H100 SXM data sheet
 # float32 on the card is IEEE float32, the precision every entry point
 # sets (drl_tetris_tpu_torch.use_ieee_float32: TF32 off), so the checks
 # below run at the precision ``train`` runs at.  A net's float32 outputs
@@ -222,7 +256,6 @@ DUAL_ENVS = 256                     # dual PPO: 8,192 samples per policy, as
                                     # many env-steps per Adam step as 1024 x
                                     # 64 single-policy PPO
 DUAL_SEED = 17
-PLAIN_GAMES = 16384                 # games per step_plain call of a check
 ARCHS = ("vanilla", "keyboard", "dreamer")
 ARCH_BOARDS = 64                    # boards of the card-vs-CPU net checks
 ARCH_EVAL_GAMES = 16                # the architectures' eval, per pair
@@ -232,6 +265,12 @@ WM_ENVS, WM_HORIZON = 16, 32        # both flavours' preset shape
 WM_SEED = 19
 T_KINDS = 24                        # ticks of each per-kind comparison
 WM_EVAL_GAMES = 2                   # the five-kind eval, per pair
+PROC_ENVS, PROC_HORIZON = 128, 64   # a process worker's segment
+PROC_SAMPLES = 8192                 # samples per process-mode update
+PROC_SEED = 23
+UP_WORKERS, UP_CHAOS_S = 2, 5       # up: workers, seconds to the chaos stop
+DIST_ENVS, DIST_HORIZON = 256, 32   # train --distributed, one iteration
+BENCH_TRAIN = (256, 64, 64)         # the in-process training bench
 # the DQN update on the card against the CPU, float32, on 256
 # samples of the replay (8 steps): targets relative to their largest
 # |value|, first-step gradients as the PPO check's, new priorities
@@ -401,7 +440,7 @@ def phase_selfplay(results, card):
     from drl_tetris_tpu_torch.algos.rollout import (make_policy_fn,
                                                     make_rollout_fn)
     from drl_tetris_tpu_torch.engine import cuda_tick
-    from drl_tetris_tpu_torch.engine.checks import max_abs_err
+    from drl_tetris_tpu_torch.engine.checks import hold_ticks, max_abs_err
     from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
     from drl_tetris_tpu_torch.models.convert import seeded_state_dict
     from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
@@ -451,11 +490,15 @@ def phase_selfplay(results, card):
         raise AssertionError(f"launches {launches}: the one-tick entry must "
                              f"carry each of the {HORIZON} env steps")
 
-    # the env side of the trajectory: replay the chosen actions through
-    # the plain engine from the same start state
-    ref = cuda_tick.rollout_plain(cfg, st0, HORIZON,
-                                  actions=(seg.rot, seg.trans))
-    env_err = max_abs_err(st, ref)
+    # the env side of the trajectory: the chosen actions replayed through
+    # the one-tick entry from the same start state, every tick held
+    # against the plain engine and the last state against the rollout's
+    ticks, ks = [], st0
+    for r, t in zip(seg.rot, seg.trans):
+        out = cuda_tick.step(cfg, ks, r, t)
+        ticks.append(((cfg, ks, r, t), out))
+        ks = out[0]
+    env_err = max(max_abs_err(st, ks), hold_ticks(ticks)[0])
     if env_err != 0.0:
         raise AssertionError(f"rollout state differs from the plain replay "
                              f"({env_err})")
@@ -505,12 +548,12 @@ def net_card_vs_cpu(env, state):
 def phase_train(results, card):
     """The main path's training iteration (StandaloneTrainer, r5_learning):
     rollout with the one-tick entry, GAE, the PPO update with Adam."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     from drl_tetris_tpu_torch import config
     from drl_tetris_tpu_torch.algos.rollout import policy_inputs
     from drl_tetris_tpu_torch.config.parameter import param_eval
     from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.runtime.bench import (device_peak,
+                                                    iteration_flops)
     from drl_tetris_tpu_torch.runtime.standalone import (StandaloneConfig,
                                                          StandaloneTrainer)
     from drl_tetris_tpu_torch.utils.metrics import (busy_share,
@@ -569,23 +612,20 @@ def phase_train(results, card):
 
     n_samples = N_SLICE * HORIZON
     n_steps = ppo.n_train_epochs * (n_samples // ppo.minibatch_size)
-    # analytic FLOPs from the conv shapes (torch's flop counter on one
-    # minibatch), per sample: the forward, and forward + backward
+    # analytic FLOPs from the conv shapes, the function bench's
+    # train_mfu_pct reads too (train_mfu here is the same as a fraction)
     obs = tr.env.observe(tr.env_state)
     vec, vis = policy_inputs(obs)
     mb = ppo.minibatch_size
-    vec, vis = [v[:mb] for v in vec], [v[:mb] for v in vis]
-    with FlopCounterMode(display=False) as fc, torch.no_grad():
-        tr.net(vec, vis)
-    fwd = fc.get_total_flops() / mb
-    with FlopCounterMode(display=False) as fc:
-        pi, v = tr.net(vec, vis)
-        (pi.sum() + v.sum()).backward()
-    fwd_bwd = fc.get_total_flops() / mb
-    tr.net.zero_grad(set_to_none=True)
-    iter_flops = (fwd * N_SLICE * (HORIZON + 1)
-                  + fwd_bwd * n_samples * ppo.n_train_epochs)
-    mfu = iter_flops / secs / H100_BF16_FLOPS
+    flops = iteration_flops(tr.net, [v[:mb] for v in vec],
+                            [v[:mb] for v in vis], N_SLICE, HORIZON,
+                            ppo.n_train_epochs)
+    fwd, fwd_bwd, iter_flops = (flops["fwd"], flops["fwd_bwd"],
+                                flops["iteration"])
+    kind, peak = device_peak(DEV)       # bench's dense bf16 peak
+    if peak is None:
+        raise AssertionError(f"no published bf16 peak for {kind}")
+    mfu = iter_flops / secs / peak
     sps = n_samples / secs
 
     prof, prof_s, prof_steps = profile_update_steps(tr, 8)
@@ -606,7 +646,8 @@ def phase_train(results, card):
         f"{fwd_bwd / 1e9:.4f} GFLOP forward+backward per sample; "
         f"iteration {iter_flops / 1e12:.3f} TFLOP "
         f"({iter_flops / n_samples / 1e9:.3f} GFLOP per env-step); "
-        f"train_mfu {mfu:.5f} of {H100_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16")
+        f"train_mfu {mfu:.5f} (a fraction; bench's train_mfu_pct is the "
+        f"same in percent) of {peak / 1e12:.0f} TFLOP/s bf16")
     log(f"[train] {card}: profile of {prof_steps} minibatch steps: "
         f"{kps:.1f} kernels per step, {prof_s / prof_steps * 1e3:.3f} ms "
         f"per step under the profiler, device busy {busy:.4f}; lr {lr:.6g}, "
@@ -732,7 +773,7 @@ def start_cli(args):
     proc = subprocess.Popen([sys.executable, "-m", "drl_tetris_tpu_torch",
                              *args, "--device", DEV], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env,
-                            cwd=REPO)
+                            cwd=REPO, process_group=0)
     return proc, time.perf_counter()
 
 
@@ -742,6 +783,11 @@ def finish_cli(started, label):
     proc, t0 = started
     try:
         out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)     # and what it started
+        out, err = proc.communicate()
+        raise AssertionError(f"CLI {label} ran past {CLI_TIMEOUT} s:\n"
+                             f"{out[-6000:]}\n{err[-3000:]}")
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -792,46 +838,13 @@ def eval_here(paths, games):
 
 
 def held_against_plain(ticks_in, label):
-    """Each recorded tick ((cfg, state, r, t[, kind, y]), (state', reward,
-    done)) of the one-tick entry against ``step_plain`` from the same
-    state and actions: returns (max |kernel - plain| over every leaf,
+    """Each recorded tick of the one-tick entry against ``step_plain`` from
+    the same state and actions (``hold_ticks``, engine/checks.py, batched
+    along the game axis): returns (max |kernel - plain| over every leaf,
     reward and done, the dones).  Fails unless that is 0.0 and some game
-    finished.  A game's tick depends on that game alone, so the ticks go
-    through ``step_plain`` concatenated along the game axis, PLAIN_GAMES
-    games a call (the plain tick costs about the same at 8 games as at
-    4096); with any per-kind tick among them, the macro ticks join as
-    kind 0."""
-    from drl_tetris_tpu_torch.engine.checks import tick_err
-    from drl_tetris_tpu_torch.engine.core import tree_map
-    from drl_tetris_tpu_torch.env.env import step_plain
-    cfg = ticks_in[0][0][0]
-    if any(inputs[0] != cfg for inputs, _ in ticks_in):
-        raise AssertionError(f"{label}: the ticks ran two configurations")
-    kinds = any(len(i) > 4 and i[4] is not None for i, _ in ticks_in)
-    if kinds:
-        def with_kind(i):
-            if len(i) > 4 and i[4] is not None:
-                return i
-            z = torch.zeros_like(i[2], dtype=torch.int32)
-            return (*i[:4], z, z)
-        ticks_in = [(with_kind(i), o) for i, o in ticks_in]
-
-    def cat(*xs):
-        return torch.cat(xs)
-    err, dones, start = 0.0, 0, 0
-    while start < len(ticks_in):
-        end, games = start, 0
-        while end < len(ticks_in) and (end == start or games + len(
-                ticks_in[end][1][1]) <= PLAIN_GAMES):
-            games += len(ticks_in[end][1][1])
-            end += 1
-        group = ticks_in[start:end]
-        inputs = [tree_map(cat, *[i[k] for i, _ in group])
-                  for k in ((1, 2, 3, 4, 5) if kinds else (1, 2, 3))]
-        out = [tree_map(cat, *[o[k] for _, o in group]) for k in (0, 1, 2)]
-        err = max(err, tick_err(tuple(out), step_plain(cfg, *inputs)))
-        dones += int(out[2].sum())
-        start = end
+    finished."""
+    from drl_tetris_tpu_torch.engine.checks import hold_ticks
+    err, dones = hold_ticks(ticks_in)
     if err != 0.0 or dones == 0:
         raise AssertionError(f"{label}: kernel vs plain {err} over "
                              f"{len(ticks_in)} ticks, {dones} dones")
@@ -1196,6 +1209,295 @@ def phase_cli(results, card):
         match_s=rr_s, match_sps=match_sps)
 
 
+def launches_reset():
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    for k in cuda_tick.LAUNCHES:
+        cuda_tick.LAUNCHES[k] = 0
+
+
+def process_fw():
+    """The CLI's default stack (the full-width 'silver' PPONet, bf16) with
+    PROC_SAMPLES samples per update: the process runtime's config."""
+    from drl_tetris_tpu_torch.config import presets
+    return presets.load(presets.CLI_PRESETS,
+                        {"n_samples_each_update": PROC_SAMPLES})
+
+
+def phase_process(results, card):
+    """The process runtime on the card: in this process a tetrikv server,
+    a WorkerRunner and a TrainerRunner at the full-width default stack,
+    two segments of PROC_ENVS x PROC_HORIZON and two updates; every
+    recorded worker tick held against the plain version; persist and
+    recover a fresh worker (the checksum validates, a tampered one
+    raises).  Then ``up --workers 2 --updates 2 --chaos`` through the
+    command line, the roles as processes on the card."""
+    import tempfile
+
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.runtime.kv import free_port, launch_server
+    from drl_tetris_tpu_torch.runtime.runner import (TrainerRunner,
+                                                     WorkerRunner)
+    from drl_tetris_tpu_torch.runtime.standalone import StandaloneConfig
+    from drl_tetris_tpu_torch.runtime.training_state import TrainingState
+    fw = process_fw()
+    cfg = StandaloneConfig(env=fw.env, model=fw.model, ppo=fw.ppo,
+                           n_envs=PROC_ENVS, horizon=PROC_HORIZON,
+                           seed=PROC_SEED)
+    seg = PROC_ENVS * PROC_HORIZON
+    port = free_port()
+    server = launch_server(port)
+    try:
+        worker = WorkerRunner(cfg, TrainingState("proc", port=port), "ppo",
+                              fw, device=DEV)
+        trainer = TrainerRunner(cfg, TrainingState("proc", role="trainer",
+                                                   port=port),
+                                min_samples=PROC_SAMPLES, flavour="ppo",
+                                fw=fw, device=DEV)
+        before = [p.detach().clone() for p in trainer.net.parameters()]
+        # a segment, then an update on it, twice: the trainer trains on
+        # all it has drained, so two queued segments would make one
+        # update.  Each run persists at its end and the second recovers
+        # and validates that state first.
+        worker_s, updates = 0.0, 0
+        with recorded_kernel_ticks() as ticks_in:
+            launches_reset()
+            for _ in range(2):
+                sync()
+                t0 = time.perf_counter()
+                worker.run(max_steps=seg)
+                sync()
+                worker_s += time.perf_counter() - t0
+                launches = dict(cuda_tick.LAUNCHES)
+                updates += trainer.run(max_updates=1)
+                if dict(cuda_tick.LAUNCHES) != launches:
+                    raise AssertionError("the trainer stepped the env")
+        if updates != 2:
+            raise AssertionError(f"{updates} updates, not 2")
+        if launches["step"] != 2 * PROC_HORIZON or \
+                len(ticks_in) != 2 * PROC_HORIZON:
+            raise AssertionError(f"launches {launches} for "
+                                 f"{len(ticks_in)} worker ticks")
+        err, dones = held_against_plain(ticks_in, "worker ticks")
+        moved = max((p.detach() - b).abs().max().item()
+                    for p, b in zip(trainer.net.parameters(), before))
+        if not moved > 0.0:
+            raise AssertionError("the process updates did not move the net")
+        # each trainer run publishes after its update and at its exit
+        if worker.update_weights() != 4:
+            raise AssertionError("the worker did not see the weights")
+        fresh = WorkerRunner(cfg, TrainingState("proc", role=worker.ts.me,
+                                                port=port), "ppo", fw,
+                             device=DEV)
+        if not fresh.recover():               # validates the checksum
+            raise AssertionError("the fresh worker found no state")
+        fresh.ts.store_validation(None, "0" * 32)
+        try:
+            WorkerRunner(cfg, fresh.ts, "ppo", fw, device=DEV).recover()
+        except RuntimeError as e:
+            if "recovery validation failed" not in str(e):
+                raise
+        else:
+            raise AssertionError("a tampered checksum was accepted")
+    finally:
+        server.kill()
+        server.wait()
+    update_s = trainer.update_s
+    worker_sps = 2 * seg / worker_s
+    log(f"[process] {card}: WorkerRunner + TrainerRunner in this process, "
+        f"the default stack (full-width PPONet, bf16), {PROC_ENVS} x "
+        f"{PROC_HORIZON} segments: 2 segments in {worker_s:.2f} s = "
+        f"{worker_sps:.1f} worker env-steps/s (with the store round "
+        f"trips); 2 updates of {PROC_SAMPLES} samples in "
+        f"{update_s[0]:.2f} and {update_s[1]:.2f} s; one-tick launches "
+        f"{launches['step']}; max |kernel - plain| over the "
+        f"{len(ticks_in)} worker ticks {err} ({dones} dones); a fresh "
+        f"worker recovered and validated its checksum, a tampered "
+        f"checksum raised")
+
+    # up: the store, a trainer and UP_WORKERS workers as processes, each
+    # worker but the chaos victim one segment (--steps): unbounded workers
+    # outrun the trainer about 40 to 1 here, and a trainer trains on all
+    # it drains, so its second update would take up to 64 segments
+    # (PERF.md, process mode).  Worker 0 runs until the SIGTERM, so the
+    # signal lands mid-run.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_up-") as d:
+        out, up_s = finish_cli(start_cli(
+            ["up", "--workers", str(UP_WORKERS), "--updates", "2",
+             "--steps", str(seg), "--chaos", str(UP_CHAOS_S), "--port",
+             str(free_port()), "--run-id", "up", "--data-dir", d,
+             "--n-envs", str(PROC_ENVS), "--horizon", str(PROC_HORIZON),
+             "--seed", str(PROC_SEED), "--set",
+             f"n_samples_each_update={PROC_SAMPLES}"]), "up")
+    # the workers race for the slots: worker0 may hold worker-1
+    slot = re.search(r"\[worker0\] claimed slot (worker-\d+)", out)
+    slot = slot[1] if slot else "worker-0"
+    for want in ("trainer: update 2", "[up] CHAOS: SIGTERM worker0",
+                 f"[worker0b] claimed slot {slot} ",
+                 f"[worker0b] {slot}: recovered state from store"):
+        if want not in out:
+            raise AssertionError(f"up printed no {want!r}:\n{out[-6000:]}")
+    # worker 0 persisted because of the signal, not at a step limit
+    chaos = out.index("[up] CHAOS: SIGTERM worker0")
+    if f"[worker0] {slot}: state persisted on a signal" not in out[chaos:]:
+        raise AssertionError("worker 0 did not persist on the SIGTERM:\n"
+                             f"{out[-6000:]}")
+    starts = {name: float(secs) for name, secs in re.findall(
+        r"\[(\w+)\] .*\(start-up ([\d.]+) s\)", out)}
+    up_updates = [float(x) for x in re.findall(
+        r"\[trainer\] trainer: update \d+ .* update_s=([\d.]+)", out)]
+    worker_rates = [float(x) for x in re.findall(
+        r"\[worker\w*\] worker-\d+: segment pushed .* ([\d.]+) "
+        r"env-steps/s", out)]
+    log(f"[process] {card}: up --workers {UP_WORKERS} --updates 2 --chaos "
+        f"{UP_CHAOS_S} (all roles on the card) in {up_s:.1f} s: start-up "
+        f"{starts} s; trainer s per update {up_updates}; worker segments "
+        f"{worker_rates} env-steps/s each; worker 0 stopped, the "
+        f"replacement reclaimed worker-0 and recovered its state")
+    results["errs"]["step_process"] = err
+    results.update(process_launches=launches["step"],
+                   process_worker_sps=worker_sps, process_update_s=update_s,
+                   process_dones=dones, up_s=up_s, up_startup_s=starts,
+                   up_update_s=up_updates, up_worker_sps=worker_rates)
+
+
+def phase_distributed(results, card):
+    """``train --distributed`` (world size 1, NCCL) through the command
+    line's entry point in this process: one iteration of DIST_ENVS x
+    DIST_HORIZON at the default stack and full width, every tick recorded
+    and held against the plain version, the loss finite, the parameters
+    moved from their initialisation."""
+    import tempfile
+
+    from drl_tetris_tpu_torch.cli.main import main as cli_main
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.models.nets import PPONet
+    from drl_tetris_tpu_torch.parallel.mesh import backend_for
+    from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
+    from torch import distributed as dist
+    steps = DIST_ENVS * DIST_HORIZON
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist-") as d, \
+            recorded_kernel_ticks() as ticks_in, \
+            contextlib.redirect_stdout(out):
+        launches_reset()
+        t0 = time.perf_counter()
+        cli_main(["train", "--distributed", "--device", DEV, "--data-dir",
+                  d, "--run-id", "dist", "--n-envs", str(DIST_ENVS),
+                  "--horizon", str(DIST_HORIZON), "--steps", str(steps),
+                  "--seed", "3"])
+        sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_tick.LAUNCHES)
+        raw = ckpt.restore_raw(os.path.join(d, "models", "dist"))
+    text = out.getvalue()
+    if dist.is_initialized():
+        raise AssertionError("train --distributed left its process group")
+    if launches["step"] != DIST_HORIZON or len(ticks_in) != DIST_HORIZON:
+        raise AssertionError(f"launches {launches} for {len(ticks_in)} "
+                             "ticks")
+    err, dones = held_against_plain(ticks_in, "distributed ticks")
+    loss = re.search(r"total_loss=(\S+)", text)
+    sps = iteration_sps(text).get(steps)
+    if loss is None or not math.isfinite(float(loss[1])) or sps is None \
+            or int(raw["total_steps"]) != steps:
+        raise AssertionError(f"train --distributed printed:\n{text}")
+    fw = process_fw()
+    e = fw.env.engine
+    init = PPONet(fw.model, board=(e.height, e.width), device="cpu")
+    init.init_flax_(torch.Generator().manual_seed(3))
+    moved = max(float(np.abs(raw["params"][k] - v.numpy()).max())
+                for k, v in init.state_dict().items())
+    if not moved > 0.0:
+        raise AssertionError("train --distributed did not move the net")
+    log(f"[distributed] {card}: train --distributed (world size 1, "
+        f"{backend_for(DEV)}), "
+        f"{DIST_ENVS} x {DIST_HORIZON}, one iteration at full width: "
+        f"{sps:.1f} env-steps/s as the CLI prints it, the command "
+        f"{secs:.1f} s; loss {float(loss[1]):.5f}, max |dparam| "
+        f"{moved:.3e}; one-tick launches {launches['step']}; max |kernel - "
+        f"plain| over the {len(ticks_in)} ticks {err} ({dones} dones)")
+    results["errs"]["step_distributed"] = err
+    results.update(distributed_launches=launches["step"],
+                   distributed_sps=sps, distributed_s=secs)
+
+
+BENCH_KEYS = ("metric", "value", "unit", "step_env_steps_per_s",
+              "rollout_env_steps_per_s", "device_kind", "power_limit_w")
+TRAIN_BENCH_KEYS = ("train_env_steps_per_s", "train_recipe",
+                    "train_mfu_pct", "train_gflop_per_env_step",
+                    "train_sol_env_steps_per_s", "device_kind")
+
+
+def phase_bench(results, card):
+    """``bench --no-train`` as a subprocess (its JSON line's keys, both
+    engine rates positive), then the package's training bench in this
+    process at BENCH_TRAIN (games, horizon, minibatch), one timed
+    iteration after a warm one."""
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.runtime import bench
+    out, secs = finish_cli(start_cli(["bench", "--no-train"]), "bench")
+    line = json.loads(out.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    if missing or not (line["step_env_steps_per_s"] > 0
+                       and line["rollout_env_steps_per_s"] > 0) \
+            or line["value"] != max(line["step_env_steps_per_s"],
+                                    line["rollout_env_steps_per_s"]):
+        raise AssertionError(f"bench printed {line} (missing {missing})")
+    n, h, mb = BENCH_TRAIN
+    launches_reset()
+    train = bench.bench_training(n, h, mb, iters=1, device=DEV)
+    launches = dict(cuda_tick.LAUNCHES)
+    missing = [k for k in TRAIN_BENCH_KEYS if k not in train]
+    if missing or not train["train_env_steps_per_s"] > 0 \
+            or launches["step"] != 2 * h:
+        raise AssertionError(f"bench_training gave {train}, launches "
+                             f"{launches}")
+    log(f"[bench] {card}: bench --no-train in {secs:.1f} s: "
+        f"{json.dumps(line)}")
+    log(f"[bench] {card}: bench_training {n} x {h} mb{mb}, one timed "
+        f"iteration after a warm one: {json.dumps(train)}; one-tick "
+        f"launches {launches['step']}")
+    results.update(bench_line=line, bench_train=train,
+                   bench_launches=launches["step"])
+
+
+def phase_play(results, card):
+    """``play`` of two of phase_cli's checkpoints (the PPO run and the
+    league-pool run) through the command line's entry point in this
+    process: one ANSI frame per tick with both agents' probe lines, one
+    one-tick launch per tick, each held against the plain version."""
+    from drl_tetris_tpu_torch.cli.main import main as cli_main
+    from drl_tetris_tpu_torch.engine import cuda_tick
+    d = results["_cli_tmp"].name
+    out = io.StringIO()
+    with recorded_kernel_ticks() as ticks_in, \
+            contextlib.redirect_stdout(out):
+        launches_reset()
+        t0 = time.perf_counter()
+        cli_main(["play", os.path.join(d, "models", "smoke"),
+                  os.path.join(d, "models", "pool"), "--device", DEV])
+        sync()
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_tick.LAUNCHES)
+    frames = out.getvalue().split("\x1b[2J\x1b[H")[1:]
+    probes = [len(re.findall(r" H=-?[\d.]+ v=[+-][\d.]+ [AB]$", f, re.M))
+              for f in frames]
+    if not frames or len(frames) != len(ticks_in) or set(probes) != {2} \
+            or launches["step"] != len(ticks_in):
+        raise AssertionError(f"play: {len(frames)} frames, probes "
+                             f"{set(probes)}, launches {launches} for "
+                             f"{len(ticks_in)} ticks")
+    err, dones = held_against_plain(ticks_in, "play ticks")
+    log(f"[play] {card}: play smoke vs pool, one game: {len(frames)} ANSI "
+        f"frames with both probe lines in {secs:.2f} s "
+        f"({len(frames) / secs:.1f} ticks/s); one-tick launches "
+        f"{launches['step']}; max |kernel - plain| {err} ({dones} dones)")
+    log("[play] last frame:\n" + frames[-1])
+    results["errs"]["step_play"] = err
+    results.update(play_launches=launches["step"], play_ticks=len(frames),
+                   play_s=secs)
+
+
 def phase_dqn(results, card):
     """SVENton-DQN at the full DQN stack: the pareto rollout with the
     one-tick entry, the 2M-row rank replay on the card, k-step targets
@@ -1486,8 +1788,7 @@ def phase_dual(results, card):
     from drl_tetris_tpu_torch.runtime.standalone import (DualPolicyConfig,
                                                          DualPolicyTrainer)
     mc = config.load("r5_learning")
-    ppo = dataclasses.replace(mc.ppo, single_policy=False,
-                              n_train_epochs=TRAIN_EPOCHS)
+    ppo = dataclasses.replace(mc.ppo, single_policy=False)
     cfg = DualPolicyConfig(env=mc.env, model=mc.model, ppo=ppo,
                            n_envs=DUAL_ENVS, horizon=HORIZON, seed=DUAL_SEED)
     tr = DualPolicyTrainer(cfg, device=DEV)
@@ -2150,6 +2451,10 @@ def phase_times(results, card, baseline=None):
              demo_eval_ticks=results["demo_eval_ticks"],
              arch_eval_launches=results["arch_eval_launches"],
              arch_eval_ticks=results["arch_eval_ticks"],
+             process_launches=results["process_launches"],
+             distributed_launches=results["distributed_launches"],
+             bench_launches=results["bench_launches"],
+             play_launches=results["play_launches"],
              path="training iteration (StandaloneTrainer.train_iteration)",
              shape=f"{N_SLICE} games x 1 tick", wrapper_ms=wrap_ms,
              bytes_ms=sb_bytes, ops_ms=sb_ops),
@@ -2231,7 +2536,8 @@ def main():
     t0 = time.perf_counter()
     baseline = phase_build(results, card, opts.baseline)
     for phase in (phase_kernel_vs_plain, phase_selfplay, phase_train,
-                  phase_cli, phase_demo, phase_dqn, phase_dual,
+                  phase_cli, phase_demo, phase_play, phase_process,
+                  phase_distributed, phase_bench, phase_dqn, phase_dual,
                   phase_dual_dqn, phase_architectures, phase_sixten,
                   phase_sherlock, phase_placement_eval, phase_engine):
         t = time.perf_counter()
@@ -2252,7 +2558,10 @@ def main():
         f"{results['match_sps']:.0f} env-steps/s, checkpoint save "
         f"{results['ckpt_save_ms']:.1f} ms / restore "
         f"{results['ckpt_restore_ms']:.1f} ms, self-play "
-        f"{results['selfplay_sps']:.0f} env-steps/s, engine kernel "
+        f"{results['selfplay_sps']:.0f} env-steps/s, process worker "
+        f"{results['process_worker_sps']:.1f} env-steps/s and "
+        f"{results['process_update_s'][1]:.2f} s per update, distributed "
+        f"{results['distributed_sps']:.1f} env-steps/s, engine kernel "
         f"{results['engine_sps']:.0f} env-steps/s; {card}; total "
         f"{results['total_s']:.1f} s")
     log(json.dumps({"kernels": kernels}))

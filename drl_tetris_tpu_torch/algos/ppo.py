@@ -41,6 +41,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from drl_tetris_tpu_torch.algos.gae import sventon_gae
@@ -121,13 +122,48 @@ def compressor_init(device=None) -> CompressorState:
     return CompressorState(one, one.clone())
 
 
-def compressor_apply(cfg: CompressorConfig, st: CompressorState, x):
+def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+    """A detached copy of ``x`` reduced over ``group`` with ``op``."""
+    y = x.detach().clone()
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+def mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` averaged over ``group`` (sum, then divide: ``lax.pmean``),
+    without a gradient."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM) / dist.get_world_size(
+        group)
+
+
+class _GlobalMean(torch.autograd.Function):
+    """Forward: ``x`` averaged over a process group.  Backward: the
+    cotangent passes through unchanged, as ``lax.pmean``'s transpose gives
+    each replica when the cotangents agree; the gradients are averaged
+    afterwards."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return mean_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def compressor_apply(cfg: CompressorConfig, st: CompressorState, x,
+                     group=None):
     """One call of compressor.__call__ and its update op: (y, state',
     saturation).  The batch statistics only feed the running means, so
-    they carry no gradient."""
+    they carry no gradient.  Data-parallel over ``group``, they are the
+    global ones (the mean averaged, the max max-reduced), so the state
+    stays replicated."""
     eps = 1e-6
     ax = x.detach().abs()
     batch_mean, batch_max = ax.mean(), ax.max()
+    if group is not None:
+        batch_mean = mean_over(batch_mean, group)
+        batch_max = _all_reduce(batch_max, group, dist.ReduceOp.MAX)
     if cfg.cautious:
         norm = torch.maximum(st.x_mean, torch.clamp(batch_mean, min=eps))
     else:
@@ -302,11 +338,12 @@ def entropy_floor(cfg: PPOConfig, n_actions: int) -> float:
 
 def ppo_loss(engine_cfg: EngineConfig, cfg: PPOConfig, net, mb,
              adv_comp: CompressorState, vloss_comp: CompressorState,
-             ref_net=None):
+             ref_net=None, group=None):
     """(loss, adv_comp', vloss_comp', stats) of one minibatch (a Batch, or
     a WindowBatch with ``ref_net`` when the trainer computes targets); the
     loss carries the graph to the net's parameters, the rest is
-    detached."""
+    detached.  With a process ``group`` (data-parallel), the value MSE and
+    the compressors' batch statistics are the global ones."""
     e = 1e-6
     trainer_targets = isinstance(mb, WindowBatch)
     occ_t, vec_t = (mb.occ_w[:, 0], mb.vec_w[:, 0]) if trainer_targets \
@@ -338,7 +375,7 @@ def ppo_loss(engine_cfg: EngineConfig, cfg: PPOConfig, net, mb,
     adv, adv_sat = advantage_in, zero
     if cfg.compress_advantages is not None:
         adv, adv_comp, adv_sat = compressor_apply(
-            cfg.compress_advantages, adv_comp, adv)
+            cfg.compress_advantages, adv_comp, adv, group)
     policy_obj = torch.minimum(ratio * adv, clipped * adv)
 
     # entropy of the acting piece's action plane (ppo_nets.py:174-185)
@@ -360,11 +397,13 @@ def ppo_loss(engine_cfg: EngineConfig, cfg: PPOConfig, net, mb,
             max_entropy - entropy_bonus)
 
     value_mse = torch.mean((values - target_v) ** 2)
+    if group is not None:
+        value_mse = _GlobalMean.apply(value_mse, group)
     value_loss = cfg.value_loss * value_mse
     vloss_sat = zero
     if cfg.compress_value_loss is not None:
         value_loss, vloss_comp, vloss_sat = compressor_apply(
-            cfg.compress_value_loss, vloss_comp, value_loss)
+            cfg.compress_value_loss, vloss_comp, value_loss, group)
     policy_loss = -cfg.policy_loss * torch.mean(policy_obj)
     entropy_loss = -cfg.entropy_loss * torch.mean(entropy_bonus)
     floor_pen = zero
@@ -426,12 +465,31 @@ def first_step_gradients(engine_cfg: EngineConfig, cfg: PPOConfig, net,
     return dict(zip(names, torch.autograd.grad(loss, params))), stats
 
 
-def make_ppo_update(engine_cfg: EngineConfig, net, cfg: PPOConfig):
+def average_gradients_(params, group) -> None:
+    """Each parameter's gradient averaged over ``group``, in place: one
+    all-reduce of all of them flattened into one buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def make_ppo_update(engine_cfg: EngineConfig, net, cfg: PPOConfig,
+                    group=None):
     """Returns (init_fn(net) -> PPOState, update_fn(state, batch, key) ->
     (state, stats)), the stats those of the last minibatch of the last
     epoch.  ``key`` is a (2,) key on the net's device.  With
     ``workers_computes_advantages=False`` the batch is a WindowBatch and the
-    state carries the reference net."""
+    state carries the reference net.
+
+    ``group``: a ``torch.distributed`` process group; the update then runs
+    data-parallel over it (the JAX package's ``axis_name``), each rank on
+    its own shard of the batch: the gradients are averaged before each
+    Adam step, the value MSE and the compressors' batch statistics are
+    global, so the parameters, Adam's state and the compressors stay
+    replicated.  The other stats are the rank's own."""
     trainer_targets = not cfg.workers_computes_advantages
     if trainer_targets and cfg.augment_data:
         raise ValueError("mirror augmentation is a worker-computes-"
@@ -459,9 +517,11 @@ def make_ppo_update(engine_cfg: EngineConfig, net, cfg: PPOConfig):
             for mb_idx in epoch:
                 loss, state.adv_comp, state.vloss_comp, stats = ppo_loss(
                     engine_cfg, cfg, state.net, _rows(batch, mb_idx),
-                    state.adv_comp, state.vloss_comp, state.ref_net)
+                    state.adv_comp, state.vloss_comp, state.ref_net, group)
                 state.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                if group is not None:
+                    average_gradients_(state.net.parameters(), group)
                 state.optimizer.step()
         state.update_count += 1
         if trainer_targets:

@@ -1,15 +1,22 @@
 """Command-line entry points of the port.
 
 Counterpart of ``drl_tetris_tpu/cli/main.py`` (reference: the scripts layer,
-scripts/trainer_runscript.py, eval.py, print_settings.py):
+scripts/trainer_runscript.py, worker_runscript.py, eval.py,
+print_settings.py):
 
-  python -m drl_tetris_tpu_torch train          # standalone self-play PPO/DQN
+  python -m drl_tetris_tpu_torch train          # standalone self-play
+  python -m drl_tetris_tpu_torch train --distributed   # data-parallel PPO
   python -m drl_tetris_tpu_torch eval CKPT [CKPT...]   # round-robin
+  python -m drl_tetris_tpu_torch play [CKPT [CKPT]]    # watch a game
   python -m drl_tetris_tpu_torch print-config   # resolved settings dump
+  python -m drl_tetris_tpu_torch bench          # throughput benchmark
+  python -m drl_tetris_tpu_torch kv | worker | trainer | up
+                                                # the process runtime
 
-Every verb takes ``--device`` (default ``cuda``; ``cpu`` runs the plain
-versions).  Checkpoints are the port's own (runtime/checkpoint.py); a JAX
-run's checkpoint comes across with tools/torch_import_flax_checkpoint.py.
+Every verb that runs the engine or a net takes ``--device`` (default
+``cuda``; ``cpu`` runs the plain versions).  Checkpoints are the port's own
+(runtime/checkpoint.py); a JAX run's checkpoint comes across with
+tools/torch_import_flax_checkpoint.py.
 
 ``train`` runs SVENton-PPO (with league-pool opponents, ``--pool-seed``
 and reward shapers from the settings) and SVENton-DQN (``--presets default
@@ -24,13 +31,25 @@ placement space (``--set sixten_action_space=full`` /
 ``sherlock_action_space=full``).  ``eval`` mixes checkpoints of every
 flavour and architecture.
 
-Not ported yet, each exits with a message naming its ROADMAP item:
-``train --distributed/--multihost`` and the verbs ``kv``, ``worker``,
-``trainer``, ``up`` (14); ``play`` (15); ``bench`` (10).
+``train --distributed`` trains single-policy PPO data-parallel over a
+``torch.distributed`` process group (parallel/mesh.py): world size 1 on
+one card, or one rank per host with ``--multihost --coordinator HOST:PORT
+--num-hosts N --host-id I`` (NCCL on the card, gloo on the CPU).  Unlike
+the JAX CLI, which trains PPO on its mesh whatever the flavour, it refuses
+any other flavour and ``single_policy=false``.
+
+The process runtime (runtime/runner.py): ``kv`` runs the tetrikv store,
+``worker`` and ``trainer`` its roles, ``up`` the store, a trainer and N
+workers as local processes (``--chaos S`` stops worker 0 and starts a
+replacement that must reclaim its slot and recover its state).  Unlike
+the JAX roles, which default to the CPU, every role runs on ``--device``
+(default the card), and ``up`` passes its own to each: on one card the
+trainer and the workers share it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -39,14 +58,14 @@ import shlex
 import sys
 import time
 
-NOT_PORTED = {
-    "kv": "ROADMAP 14 (distributed runtime)",
-    "worker": "ROADMAP 14 (distributed runtime)",
-    "trainer": "ROADMAP 14 (distributed runtime)",
-    "up": "ROADMAP 14 (distributed runtime)",
-    "play": "ROADMAP 15 (the ANSI renderer)",
-    "bench": "ROADMAP 10 (the port-side bench)",
-}
+def _startup_s() -> float:
+    """Seconds since this process started (Linux's /proc): a role's
+    start-up time, interpreter, imports and model build included."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
 def _add_common(p):
@@ -102,9 +121,12 @@ def _headline(stats):
 
 
 def cmd_train(args):
-    if args.distributed or args.multihost:
-        raise SystemExit("train --distributed/--multihost: not ported yet, "
-                         "see ROADMAP 14 (distributed runtime)")
+    if args.multihost or args.distributed:
+        return _train_data_parallel(args)
+    _train_runs(args)
+
+
+def _train_runs(args):
     if args.experiment:
         # batch runs from the experiment schedule: presets + cumulative
         # patches -> one run per patch with distinct run-ids
@@ -126,12 +148,47 @@ def cmd_train(args):
     _train_one(_load_cfg(args), args)
 
 
+def _train_data_parallel(args):
+    """``train --distributed``: the process group (one rank here, or
+    ``--multihost``'s rank among ``--num-hosts``), then the runs, then the
+    group torn down."""
+    from torch import distributed as dist
+
+    from drl_tetris_tpu_torch import resolve_device
+    from drl_tetris_tpu_torch.parallel.mesh import make_mesh
+    from drl_tetris_tpu_torch.runtime.kv import free_port
+    args.distributed = True
+    device = resolve_device(args.device)
+    if args.multihost:
+        make_mesh(device, f"tcp://{args.coordinator}", args.num_hosts,
+                  args.host_id)
+    else:
+        make_mesh(device, f"tcp://127.0.0.1:{free_port()}")
+    try:
+        _train_runs(args)
+    finally:
+        dist.destroy_process_group()
+
+
 def _check_trainable(cfg, args):
     """What the port's trainers run: PPO and DQN, single- or
     dual-policy, SIXten and Sherlock; a dual run has no resume, warm start
-    or seeded pool."""
+    or seeded pool; the data-parallel trainer single-policy PPO from
+    fresh weights."""
     if cfg.flavour not in ("ppo", "dqn", "sixten", "sherlock"):
         raise SystemExit(f"unknown flavour {cfg.flavour!r}")
+    if args.distributed:
+        if cfg.flavour != "ppo" or not cfg.ppo.single_policy:
+            raise SystemExit(
+                "train --distributed: the mesh path trains single-policy "
+                f"PPO only (this run is flavour {cfg.flavour!r}, "
+                f"single_policy={cfg.ppo.single_policy}); train it "
+                "without --distributed")
+        if args.resume or args.init_from or args.pool_seed:
+            raise SystemExit("train --distributed starts from fresh "
+                             "weights: --resume, --init-from and "
+                             "--pool-seed are the standalone trainer's")
+        return
     if cfg.ppo.single_policy or cfg.flavour in ("sixten", "sherlock"):
         return
     if args.resume:
@@ -189,6 +246,13 @@ def _make_trainer(cfg, args):
     from drl_tetris_tpu_torch.runtime import standalone as S
     n_envs = args.n_envs or cfg.n_envs
     s = cfg.settings
+    if args.distributed:
+        from drl_tetris_tpu_torch.parallel.mesh import (DistributedConfig,
+                                                        DistributedTrainer)
+        return DistributedTrainer(DistributedConfig(
+            env=cfg.env, model=cfg.model, ppo=cfg.ppo,
+            n_envs=args.n_envs or 4096, horizon=args.horizon,
+            seed=args.seed), device=args.device)
     if cfg.flavour == "sixten":
         return S.StandaloneSIXtenTrainer(S.StandaloneSIXtenConfig(
             env=cfg.env, model=cfg.model, replay=cfg.replay, n_envs=n_envs,
@@ -292,8 +356,11 @@ def _train_one(cfg, args):
         tr.seed_pool(raw.get("params", raw))
         print(f"[pool] seeded opponent from {path}", flush=True)
 
+    # a data-parallel run's replicas are equal: rank 0 alone logs, saves
+    # and plays the league
+    writer = getattr(tr, "rank", 0) == 0
     league = None
-    if args.league_every:
+    if args.league_every and writer:
         from drl_tetris_tpu_torch.runtime.league import (TrainingLeague,
                                                          random_anchor)
         anchors = [_load_agent(path, cfg, device=tr.device,
@@ -346,13 +413,16 @@ def _train_one(cfg, args):
     n_envs, horizon = tr.cfg.n_envs, tr.cfg.horizon
     steps_per_iter = n_envs * horizon
     run_settings = _run_settings(cfg, args, n_envs, horizon)
-    with MetricsWriter(metrics_dir, cfg.run_id) as mw:
+    with (MetricsWriter(metrics_dir, cfg.run_id) if writer
+          else contextlib.nullcontext()) as mw:
         it = 0
         while tr.total_steps < args.steps:
             t0 = time.time()
             with timekeeper.section("train_iteration"):
                 stats = tr.train_iteration()
             it += 1
+            if not writer:
+                continue
             if stats:
                 mw.update(stats, tr.total_steps)
             if it % args.log_every == 0:
@@ -364,9 +434,11 @@ def _train_one(cfg, args):
                     ckpt.save(ckpt_dir, tr.total_steps, tr.state_dict(),
                               settings=run_settings)
             league_tick(it, tr.total_steps)
-        ckpt.save(ckpt_dir, tr.total_steps, tr.state_dict(),
-                  settings=run_settings)
-    print(timekeeper.table())
+        if writer:
+            ckpt.save(ckpt_dir, tr.total_steps, tr.state_dict(),
+                      settings=run_settings)
+    if writer:
+        print(timekeeper.table())
 
 
 def _kind(cfg) -> str:
@@ -458,7 +530,7 @@ def cmd_eval(args):
         # (eval.py:196-205 --reload)
         agents, cfg = load_all()
         board = round_robin(cfg.env, agents, games_per_pair=args.games,
-                            seed=args.seed + rnd)
+                            seed=args.seed + rnd, render=args.render)
         print(board.score_table())
         print("\nDraws (games undecided at the tick limit):")
         for a, b in itertools.combinations(board.players, 2):
@@ -470,6 +542,205 @@ def cmd_eval(args):
         rnd += 1
         print(f"\n[reload] round {rnd}: reloading weights...", flush=True)
         time.sleep(args.reload)
+
+
+def cmd_play(args):
+    """Watch one game (ANSI frames and the probe bars; ``--pygame`` also a
+    window): a checkpoint against itself, as the JAX CLI plays it, two
+    checkpoints against each other, or fresh weights with none."""
+    from drl_tetris_tpu_torch.runtime.evaluate import play_match
+    if len(args.checkpoints) > 2:
+        raise SystemExit("play takes at most two checkpoints")
+    paths = (list(args.checkpoints) or ["random"]) * 2
+    cfg = _load_cfg(args)
+    a, cfg = _load_agent(paths[0], cfg, device=args.device, name="A")
+    b, cfg_b = _load_agent(paths[1], cfg, device=args.device, name="B")
+    _check_compat([cfg, cfg_b])
+    try:
+        play_match(cfg.env, (a, b), n_games=1, seed=args.seed, render=True,
+                   pygame=args.pygame)
+    except RuntimeError as e:
+        if args.pygame and "pygame" in str(e):
+            raise SystemExit(f"play --pygame: {e}")
+        raise
+
+
+def cmd_bench(args):
+    from drl_tetris_tpu_torch.runtime import bench
+    print(json.dumps(bench.run(args.n_envs, args.iters, not args.no_train,
+                               args.device)), flush=True)
+
+
+def _standalone_cfg(args, cfg):
+    from drl_tetris_tpu_torch.runtime.standalone import StandaloneConfig
+    return StandaloneConfig(
+        env=cfg.env, model=cfg.model, ppo=cfg.ppo,
+        n_envs=args.n_envs or cfg.n_envs, horizon=args.horizon,
+        seed=args.seed)
+
+
+def _log(message):
+    print(message, flush=True)
+
+
+def cmd_kv(args):
+    """Run the tetrikv store in the foreground (the docker-compose 'redis'
+    service, docker-compose.yaml:29-35): this process becomes the server,
+    so a signal to it reaches the server."""
+    from drl_tetris_tpu_torch.runtime.kv import server_binary
+    binary = server_binary()
+    print(f"tetrikv listening on :{args.port}", flush=True)
+    os.execv(binary, [binary, str(args.port)])
+
+
+def cmd_worker(args):
+    """A process-mode worker (scripts/worker_runscript.py:15-28): claims a
+    worker-<i> slot, streams rollout segments to the store, polls the
+    weights."""
+    from drl_tetris_tpu_torch.runtime.kv import KVClient
+    from drl_tetris_tpu_torch.runtime.runner import (WorkerRunner,
+                                                     effective_flavour)
+    from drl_tetris_tpu_torch.runtime.training_state import TrainingState
+    cfg = _load_cfg(args)
+    ts = TrainingState(cfg.run_id,
+                       kv=KVClient(host=args.host, port=args.port))
+    print(f"claimed slot {ts.me} on {args.host}:{args.port}", flush=True)
+    runner = WorkerRunner(_standalone_cfg(args, cfg), ts,
+                          flavour=effective_flavour(cfg), fw=cfg,
+                          device=args.device)
+    print(f"{ts.me}: ready on {runner.device} (start-up "
+          f"{_startup_s():.1f} s)", flush=True)
+    runner.run(max_steps=args.steps or None, logger=_log)
+
+
+def cmd_trainer(args):
+    """The process-mode trainer (scripts/trainer_runscript.py:15-26):
+    drains the experience queue, trains, publishes versioned weights."""
+    from drl_tetris_tpu_torch.runtime.kv import KVClient
+    from drl_tetris_tpu_torch.runtime.runner import (TrainerRunner,
+                                                     effective_flavour)
+    from drl_tetris_tpu_torch.runtime.training_state import TrainingState
+    cfg = _load_cfg(args)
+    ts = TrainingState(cfg.run_id, role="trainer",
+                       kv=KVClient(host=args.host, port=args.port))
+    ckpt_dir = os.path.join(args.data_dir, "models", cfg.run_id)
+    runner = TrainerRunner(
+        _standalone_cfg(args, cfg), ts,
+        min_samples=cfg.settings.get("n_samples_each_update", 2048),
+        ckpt_dir=ckpt_dir, settings=cfg.settings,
+        flavour=effective_flavour(cfg), fw=cfg, device=args.device)
+    print(f"trainer up on {args.host}:{args.port}, {runner.device}; "
+          f"checkpoints -> {ckpt_dir} (start-up {_startup_s():.1f} s)",
+          flush=True)
+    runner.run(max_updates=args.updates or None, logger=_log,
+               log_every=args.log_every)
+
+
+RECOVERY_WAIT_S = 300      # up --chaos: the replacement's start and recovery
+
+
+def cmd_up(args):
+    """The topology launcher: tetrikv, one trainer and N workers as local
+    processes (the docker-compose file, docker-compose.yaml:4-35), each
+    role on ``--device``.  ``--steps`` bounds each worker but the chaos
+    victim.  ``--chaos S``: worker 0 runs until, S seconds in and once it
+    has pushed a segment, the launcher SIGTERMs it (it persists its state
+    to the store); then it starts a replacement, which must reclaim the freed slot and recover
+    that state (elastic recovery, training_state.py:43-52); the launcher
+    then waits for the recovery before it stops everything."""
+    import signal
+    import subprocess
+    import threading
+
+    from drl_tetris_tpu_torch.runtime.kv import launch_server
+
+    kv_proc = launch_server(args.port)
+    print(f"[up] tetrikv on :{args.port}", flush=True)
+    procs, pumps = {}, {}
+    seen = {"pushed": threading.Event(), "recovered": threading.Event()}
+
+    def passthrough():
+        return ((["--presets", *args.presets] if args.presets else [])
+                + (["--set", *args.set] if args.set else [])
+                + ["--run-id", args.run_id, "--data-dir", args.data_dir,
+                   "--port", str(args.port), "--device", args.device,
+                   "--n-envs", str(args.n_envs or 0),
+                   "--horizon", str(args.horizon), "--seed", str(args.seed)])
+
+    def spawn(name, role_args):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "drl_tetris_tpu_torch", *role_args],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = p
+
+        def pump():
+            for line in p.stdout:
+                if name == "worker0" and "segment pushed" in line:
+                    seen["pushed"].set()
+                if name == "worker0b" and "recovered state" in line:
+                    seen["recovered"].set()
+                print(f"[{name}] {line}", end="", flush=True)
+        pumps[name] = threading.Thread(target=pump, daemon=True)
+        pumps[name].start()
+        return p
+
+    def stop_all():
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        deadline = time.time() + 60
+        for p in procs.values():
+            try:
+                p.wait(timeout=max(0.1, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        kv_proc.kill()
+        kv_proc.wait()
+
+    def interrupted(*_):
+        stop_all()
+        sys.exit(130)
+    signal.signal(signal.SIGINT, interrupted)
+    try:
+        trainer = spawn("trainer", ["trainer", *passthrough(),
+                                    "--updates", str(args.updates)])
+        for i in range(args.workers):
+            # the chaos victim runs until its SIGTERM
+            steps = 0 if args.chaos and i == 0 else args.steps
+            spawn(f"worker{i}", ["worker", *passthrough(),
+                                 "--steps", str(steps)])
+        if args.chaos:
+            time.sleep(args.chaos)
+            victim = procs["worker0"]
+            seen["pushed"].wait(timeout=600)
+            print("[up] CHAOS: SIGTERM worker0 (its state persists to the "
+                  "store)", flush=True)
+            victim.send_signal(signal.SIGTERM)
+            victim.wait(timeout=120)
+            print("[up] CHAOS: starting a replacement; it must reclaim the "
+                  "slot and recover", flush=True)
+            spawn("worker0b", ["worker", *passthrough(),
+                               "--steps", str(args.steps)])
+        trainer.wait()
+        print(f"[up] trainer finished (rc={trainer.returncode})", flush=True)
+        if args.chaos and trainer.returncode == 0:
+            # the replacement recovers once it has started: wait for that,
+            # or for it to end without recovering
+            deadline = time.time() + RECOVERY_WAIT_S
+            while not seen["recovered"].wait(timeout=1.0):
+                if procs["worker0b"].poll() is not None:
+                    pumps["worker0b"].join(timeout=10)   # its last lines
+                if seen["recovered"].is_set():
+                    break
+                if procs["worker0b"].poll() is not None or \
+                        time.time() > deadline:
+                    print("[up] CHAOS: the replacement did not recover",
+                          flush=True)
+                    sys.exit(1)
+    finally:
+        stop_all()
+    sys.exit(trainer.returncode or 0)
 
 
 def cmd_print_config(args):
@@ -508,11 +779,6 @@ def _print_config_diff(path_a, path_b):
             print(f"  {k:<36} {va!r:<28} != {vb!r}")
     if same:
         print("settings are identical")
-
-
-def cmd_not_ported(args):
-    raise SystemExit(f"{args.cmd}: not ported yet, see "
-                     f"{NOT_PORTED[args.cmd]}")
 
 
 def main(argv=None):
@@ -554,9 +820,14 @@ def main(argv=None):
                    help="pre-seed the league-pool opponents with this "
                         "checkpoint's net (repeatable; needs pool_prob > 0)")
     t.add_argument("--distributed", action="store_true",
-                   help="not ported yet (ROADMAP 14)")
+                   help="data-parallel single-policy PPO over a process "
+                        "group (world size 1 on one card)")
     t.add_argument("--multihost", action="store_true",
-                   help="not ported yet (ROADMAP 14)")
+                   help="one rank per host: join --coordinator's process "
+                        "group as rank --host-id of --num-hosts")
+    t.add_argument("--coordinator", default="127.0.0.1:9777")
+    t.add_argument("--num-hosts", type=int, default=1)
+    t.add_argument("--host-id", type=int, default=0)
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("eval", help="round-robin tournament between checkpoints")
@@ -564,6 +835,8 @@ def main(argv=None):
     e.add_argument("checkpoints", nargs="+")
     e.add_argument("--games", type=int, default=16)
     e.add_argument("--seed", type=int, default=0)
+    e.add_argument("--render", action="store_true",
+                   help="print every tick's frame and the probe bars")
     e.add_argument("--reload", type=float, default=0.0, metavar="SECONDS",
                    help="re-run forever, reloading weights between rounds "
                         "(spectate a live training run, eval.py:196-205)")
@@ -576,10 +849,65 @@ def main(argv=None):
                         "settings_printer.py:25-36")
     c.set_defaults(fn=cmd_print_config)
 
-    for name, item in NOT_PORTED.items():
-        n = sub.add_parser(name, help=f"not ported yet ({item})")
-        n.add_argument("rest", nargs=argparse.REMAINDER)
-        n.set_defaults(fn=cmd_not_ported)
+    w = sub.add_parser("play", help="watch a game")
+    _add_common(w)
+    w.add_argument("checkpoints", nargs="*", metavar="checkpoint",
+                   help="none (fresh weights), one (against itself) or two")
+    w.add_argument("--seed", type=int, default=0)
+    w.add_argument("--pygame", action="store_true",
+                   help="also open the pygame window renderer "
+                        "(pause on keypress, draw_tetris.py:103-143)")
+    w.set_defaults(fn=cmd_play)
+
+    def _add_proc(sp):
+        _add_common(sp)
+        sp.add_argument("--host", default="127.0.0.1")
+        sp.add_argument("--port", type=int, default=6399)
+        sp.add_argument("--n-envs", type=int, default=0)
+        sp.add_argument("--horizon", type=int, default=72)
+        sp.add_argument("--seed", type=int, default=0)
+
+    k = sub.add_parser("kv", help="run the tetrikv control-plane store")
+    k.add_argument("--port", type=int, default=6399)
+    k.set_defaults(fn=cmd_kv)
+
+    wk = sub.add_parser(
+        "worker", help="process-mode rollout worker (streams segments)")
+    _add_proc(wk)
+    wk.add_argument("--steps", type=int, default=0,
+                    help="stop after N env-steps (0 = until SIGTERM)")
+    wk.set_defaults(fn=cmd_worker)
+
+    tr = sub.add_parser(
+        "trainer", help="process-mode trainer (drains queue, publishes "
+                        "weights)")
+    _add_proc(tr)
+    tr.add_argument("--updates", type=int, default=0,
+                    help="stop after N updates (0 = until SIGTERM)")
+    tr.add_argument("--log-every", type=int, default=1)
+    tr.set_defaults(fn=cmd_trainer)
+
+    up = sub.add_parser(
+        "up", help="launch tetrikv, one trainer and N workers locally")
+    _add_common(up)
+    up.add_argument("--workers", type=int, default=3)   # compose scale: 3
+    up.add_argument("--port", type=int, default=6399)
+    up.add_argument("--n-envs", type=int, default=0)
+    up.add_argument("--horizon", type=int, default=72)
+    up.add_argument("--seed", type=int, default=0)
+    up.add_argument("--updates", type=int, default=0)
+    up.add_argument("--steps", type=int, default=0,
+                    help="each worker stops after N env-steps (0 = until "
+                         "stopped); the chaos victim runs until its SIGTERM")
+    up.add_argument("--chaos", type=float, default=0.0,
+                    help="after S seconds, kill worker 0 and show the "
+                         "slot reclaimed and its state recovered")
+    up.set_defaults(fn=cmd_up)
+
+    b = sub.add_parser("bench", help="throughput benchmark (one JSON line)")
+    from drl_tetris_tpu_torch.runtime.bench import add_arguments
+    add_arguments(b)
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -10,8 +10,10 @@ import numpy as np
 import torch
 
 from drl_tetris_tpu_torch.engine import cuda_tick
-from drl_tetris_tpu_torch.engine.core import tree_leaves
+from drl_tetris_tpu_torch.engine.core import tree_leaves, tree_map
 from drl_tetris_tpu_torch.env.env import EnvConfig, EnvState, step_plain
+
+PLAIN_GAMES = 16384      # games per step_plain call of hold_ticks
 
 
 def max_abs_err(a: EnvState, b: EnvState) -> float:
@@ -39,6 +41,47 @@ def tick_err(a: tuple, b: tuple) -> float:
     (sa, ra, da), (sb, rb, db) = a, b
     return max(max_abs_err(sa, sb), (ra - rb).abs().max().item(),
                float((da != db).sum().item()))
+
+
+def hold_ticks(ticks: list) -> tuple:
+    """Each tick ((cfg, state, r, t[, kind, y]), (state', reward, done)) of
+    the one-tick entry against ``step_plain`` from the same state and
+    actions: (max |kernel - plain| over every leaf, reward and done, the
+    dones).  A game's tick depends on that game alone, so the ticks go
+    through ``step_plain`` concatenated along the game axis, PLAIN_GAMES
+    games a call (the plain tick is launch-bound: it costs about the same
+    at 8 games as at 4096); with any per-kind tick among them, the macro
+    ticks join as kind 0.  Equal ticks from one start make equal chains,
+    so a chain held tick by tick is held as a plain chain beside it."""
+    cfg = ticks[0][0][0]
+    if any(inputs[0] != cfg for inputs, _ in ticks):
+        raise AssertionError("the ticks ran two configurations")
+    kinds = any(len(i) > 4 and i[4] is not None for i, _ in ticks)
+    if kinds:
+        def with_kind(i):
+            if len(i) > 4 and i[4] is not None:
+                return i
+            z = torch.zeros_like(i[2], dtype=torch.int32)
+            return (*i[:4], z, z)
+        ticks = [(with_kind(i), o) for i, o in ticks]
+
+    def cat(*xs):
+        return torch.cat(xs)
+    err, dones, start = 0.0, 0, 0
+    while start < len(ticks):
+        end, games = start, 0
+        while end < len(ticks) and (end == start or games + len(
+                ticks[end][1][1]) <= PLAIN_GAMES):
+            games += len(ticks[end][1][1])
+            end += 1
+        group = ticks[start:end]
+        inputs = [tree_map(cat, *[i[k] for i, _ in group])
+                  for k in ((1, 2, 3, 4, 5) if kinds else (1, 2, 3))]
+        out = [tree_map(cat, *[o[k] for _, o in group]) for k in (0, 1, 2)]
+        err = max(err, tick_err(tuple(out), step_plain(cfg, *inputs)))
+        dones += int(out[2].sum())
+        start = end
+    return err, dones
 
 
 def crowded(cfg: EnvConfig, state: EnvState, seed: int) -> EnvState:
@@ -87,22 +130,19 @@ def replayed_actions(cfg: EnvConfig, n_ticks: int, n: int, seed: int,
 def compare_entries(cfg: EnvConfig, start: EnvState, ar, at) -> tuple:
     """Both entries against the plain version from ``start`` with replayed
     actions: (T-tick error, one-tick error over every tick with reward
-    and done, dones, rounds finished).  The plain chain runs once: the
-    one-tick entry is held against it tick by tick, the T-tick entry
-    against its last state."""
+    and done, dones, rounds finished).  The one-tick entry's chain is held
+    against the plain version tick by tick (``hold_ticks``), the T-tick
+    entry against that chain's last state."""
     n_ticks = ar.shape[0]
     ker = cuda_tick.rollout(cfg, start, n_ticks, actions=(ar, at))
-    ks, ps = start, start
-    step_err, n_done = 0.0, 0
+    ticks, ks = [], start
     for tick in range(n_ticks):
         k = cuda_tick.step(cfg, ks, ar[tick], at[tick])
-        p = step_plain(cfg, ps, ar[tick], at[tick])
-        step_err = max(step_err, tick_err(k, p))
-        (ks, _, kd), ps = k, p[0]
-        n_done += int(kd.sum())
-    step_err = max(step_err, max_abs_err(ks, ps))
+        ticks.append(((cfg, ks, ar[tick], at[tick]), k))
+        ks = k[0]
+    step_err, n_done = hold_ticks(ticks)
     played = int((ker.rounds_played - start.rounds_played).sum())
-    return max_abs_err(ker, ps), step_err, n_done, played
+    return max_abs_err(ker, ks), step_err, n_done, played
 
 
 KIND_MODES = ("place", "pose", "mixed")
@@ -161,15 +201,12 @@ def compare_kinds(cfg: EnvConfig, start: EnvState, n_ticks: int, mode: str,
                   seed: int) -> tuple:
     """The one-tick entry's per-kind path against the plain version from
     ``start``, ``n_ticks`` ticks of ``kind_actions``: (max error over
-    every tick's state, reward and done, dones)."""
+    every tick's state, reward and done, dones; ``hold_ticks``)."""
     rs = np.random.RandomState(seed)
-    ks, ps = start, start
-    err, n_done = 0.0, 0
+    ticks, ks = [], start
     for _ in range(n_ticks):
         kind, r, t, y = kind_actions(cfg, ks, mode, rs)
         k = cuda_tick.step(cfg, ks, r, t, kind, y)
-        p = step_plain(cfg, ps, r, t, kind, y)
-        err = max(err, tick_err(k, p))
-        (ks, _, kd), ps = k, p[0]
-        n_done += int(kd.sum())
-    return err, n_done
+        ticks.append(((cfg, ks, r, t, kind, y), k))
+        ks = k[0]
+    return hold_ticks(ticks)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 STATE_FILE = "state.pt"
+NUMBERED_EVERY = 250  # trainer.py:113-123 save cadence (process trainer)
 
 
 def _enc(v):

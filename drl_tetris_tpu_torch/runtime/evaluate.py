@@ -26,10 +26,18 @@ entry, its macro-only instantiation when both agents are macro agents,
 else its per-kind one (the JAX package's step, step_place, step_pose and
 step_mixed* dispatch).  World-model and Sherlock agents draw from JAX's
 key chain whatever their distribution (``pi`` is SIXten's ``boltzmann``),
-so their games are JAX's.  Rendering waits for ROADMAP 15.
+so their games are JAX's.
+
+``render=True`` (``play``, ``eval --render``) reads the winner every
+tick, as the JAX package does there, and prints each tick's frame of the
+first game (utils/render.py) with, for each agent with a probability map,
+the probe (scripts/eval.py:17-28): the policy's entropy over the acting
+piece's (r, t) plane against its maximum, as a bar, and the piece's
+value.  ``pygame=True`` also draws the frames in a pygame window.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from typing import Sequence, Tuple
@@ -38,10 +46,13 @@ import numpy as np
 import torch
 
 from drl_tetris_tpu_torch.algos.rollout import (EPSILON_DISTRIBUTIONS,
-                                                make_policy_fn)
+                                                make_policy_fn,
+                                                policy_inputs)
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine import step as S
+from drl_tetris_tpu_torch.engine.core import tree_map
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
+from drl_tetris_tpu_torch.utils import render as R
 from drl_tetris_tpu_torch.utils.scoreboard import Scoreboard
 
 CHUNK = 8    # ticks between winner reads (evaluate.py:172-186)
@@ -97,13 +108,64 @@ def _agent_policy(env, agent: EvalAgent):
         agent.distribution != "argmax"
 
 
+def make_probe(env, agent: EvalAgent):
+    """The eval-time NN visualization (scripts/eval.py:17-28):
+    probe(st) -> (entropy, its maximum, value) of game 0's acting piece,
+    the entropy over the piece's (r, t) plane of the policy; None for
+    agents without a probability map (value, Q and placement agents)."""
+    if agent.kind != "macro":
+        return None
+
+    @torch.no_grad()
+    def probe(st):
+        obs = env.observe(st)
+        out = agent.net(*policy_inputs(obs))
+        if len(out) != 2:
+            return None
+        pi, v = out                             # (N, 4, W, 7), (N, 7)
+        piece = obs.piece[0, 0]
+        ppi = pi[0, :, :, piece]
+        p = ppi / torch.clamp(ppi.sum(), min=1e-8)
+        ent = -torch.sum(p * torch.log(p + 1e-8))
+        max_ent = torch.log(torch.tensor(float(ppi.numel()),
+                                         dtype=torch.float32,
+                                         device=ppi.device))
+        v_p = v[0, piece] if v.shape[-1] > 1 else v[0, 0]
+        return ent, max_ent, v_p
+    return probe
+
+
+def render_frame(env_cfg: EnvConfig, st, agents, probes) -> str:
+    """The text ``play`` prints for a tick: the first game's fields and a
+    probe line per agent with a probability map, indented by seat like the
+    reference's per-player columns."""
+    frame = R.render_ansi(env_cfg.engine, tree_map(lambda a: a[:1],
+                                                   st.engine),
+                          max_games=1, titles=[a.name for a in agents])
+    lines = []
+    for seat, (agent, probe) in enumerate(zip(agents, probes)):
+        res = None if probe is None else probe(st)
+        if res is None:
+            continue
+        ent, max_ent, v_p = torch.stack(res).tolist()
+        lines.append(" " * (30 * seat) + R.progress_bar(ent, max_ent)
+                     + f" H={ent:.2f} v={v_p:+.3f} {agent.name}")
+    return "\x1b[2J\x1b[H" + frame + ("\n" + "\n".join(lines)
+                                      if lines else "")
+
+
 def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
                n_games: int = 16, max_ticks: int = 2000, seed: int = 0,
-               render: bool = False) -> Tuple[int, int, int]:
+               render: bool = False, pygame: bool = False
+               ) -> Tuple[int, int, int]:
     """agents[0] sits as player 0 in every game.  Returns (wins0, wins1,
-    unfinished).  The games run on agents[0]'s device."""
-    if render:
-        raise NotImplementedError("rendering waits for ROADMAP 15")
+    unfinished).  The games run on agents[0]'s device.  ``render`` prints
+    every tick's frame (``render_frame``); ``pygame`` also draws it in a
+    window, pausing on a key press (draw_tetris.py:103-143)."""
+    pg_renderer = None
+    if pygame:
+        pg_renderer = R.get_pygame_renderer()
+        render = True
     dev = next(agents[0].net.parameters()).device
     env = TetrisVectorEnv(env_cfg, n_games, device=dev)
     (act0, kind0, keyed0), (act1, kind1, keyed1) = [
@@ -115,13 +177,19 @@ def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
     seat_keys = (None, None)
     finished = np.zeros(n_games, bool)
     winner = np.full(n_games, -1)
-    with torch.no_grad():
-        for _ in range(0, max_ticks, CHUNK):
+    # a rendered match reads the winner every tick (one key a tick);
+    # headless, every CHUNK ticks (one key a chunk, split per tick)
+    chunk = 1 if render else CHUNK
+    probes = [make_probe(env, a) for a in agents] if render else None
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+        if pg_renderer is not None:
+            stack.callback(pg_renderer.close)
+        for _ in range(0, max_ticks, chunk):
             done_any = torch.zeros(n_games, dtype=torch.bool, device=dev)
             if keyed:
                 key, k = rng.split(key)
-                tick_keys = rng.split(k, CHUNK)
-            for i in range(CHUNK):
+                tick_keys = [k] if chunk == 1 else rng.split(k, CHUNK)
+            for i in range(chunk):
                 if keyed:
                     seat_keys = rng.split(tick_keys[i])
                 (r0, t0, y0), (r1, t1, y1) = (
@@ -142,6 +210,13 @@ def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
             newly = d.astype(bool) & ~finished
             winner[newly] = w[newly]
             finished |= d.astype(bool)
+            if render:
+                print(render_frame(env_cfg, st, agents, probes), flush=True)
+                if pg_renderer is not None:
+                    pg_renderer.draw_all_fields(
+                        R.field_arrays(env_cfg.engine, tree_map(
+                            lambda a: a[0], st.engine)),
+                        pause_on_event=True)
             if finished.all():
                 break
     wins0 = int((winner == 0).sum())

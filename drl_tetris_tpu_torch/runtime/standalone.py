@@ -181,6 +181,27 @@ def ppo_state_dict(st: PPOState) -> dict:
     return out
 
 
+def load_ppo_state(st: PPOState, sd: dict):
+    """Set a PPO learner's state from ``ppo_state_dict``'s form (tensors
+    or numpy arrays, on any device)."""
+    dev = next(st.net.parameters()).device
+    st.net.load_params_(sd["params"])
+    load_adam_state(st.net, st.optimizer, sd["adam"])
+
+    def comp(c):
+        return CompressorState(*[torch.as_tensor(c[k]).to(
+            dev, torch.float32).clone() for k in CompressorState._fields])
+    st.adv_comp = comp(sd["adv_comp"])
+    st.vloss_comp = comp(sd["vloss_comp"])
+    st.update_count = int(sd["update_count"])
+    if st.ref_net is not None:
+        if sd.get("ref_params") is None:
+            raise ValueError("the state has no reference net, and this "
+                             "trainer computes targets through one")
+        st.ref_net.load_params_(sd["ref_params"])
+        st.ref_countdown = int(sd["ref_countdown"])
+
+
 def dqn_state_dict(st: DQNState) -> dict:
     """A DQN learner's state (the form of
     ``models/convert.dqn_state_from_flax``): ``params``, ``ref_params``,
@@ -189,6 +210,15 @@ def dqn_state_dict(st: DQNState) -> dict:
             "ref_params": st.ref_net.state_dict(),
             "adam": adam_state_dict(st.net, st.optimizer),
             "update_count": int(st.update_count)}
+
+
+def load_dqn_state(st, sd: dict):
+    """Set a learner with a reference net (``DQNState``, ``SixtenState``)
+    from ``dqn_state_dict``'s form."""
+    st.net.load_params_(sd["params"])
+    st.ref_net.load_params_(sd["ref_params"])
+    load_adam_state(st.net, st.optimizer, sd["adam"])
+    st.update_count = int(sd["update_count"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,24 +320,8 @@ class StandaloneTrainer:
         return ppo_state_dict(self.state)
 
     def load_ppo_state(self, sd: dict):
-        """Set the learner's state from ``ppo_state_dict``'s form (tensors
-        or numpy arrays, on any device)."""
-        dev = self.device
-        self.net.load_params_(sd["params"])
-        load_adam_state(self.net, self.state.optimizer, sd["adam"])
-
-        def comp(c):
-            return CompressorState(*[torch.as_tensor(c[k]).to(
-                dev, torch.float32).clone() for k in CompressorState._fields])
-        self.state.adv_comp = comp(sd["adv_comp"])
-        self.state.vloss_comp = comp(sd["vloss_comp"])
-        self.state.update_count = int(sd["update_count"])
-        if self.state.ref_net is not None:
-            if sd.get("ref_params") is None:
-                raise ValueError("the state has no reference net, and this "
-                                 "trainer computes targets through one")
-            self.state.ref_net.load_params_(sd["ref_params"])
-            self.state.ref_countdown = int(sd["ref_countdown"])
+        """``load_ppo_state(self.state, sd)``."""
+        load_ppo_state(self.state, sd)
 
     def state_dict(self) -> dict:
         """``ppo_state_dict`` plus ``total_steps`` and the key."""
@@ -494,10 +508,8 @@ class _RefNetLearner:
         return dqn_state_dict(self.state)
 
     def load_dqn_state(self, sd: dict):
-        self.net.load_params_(sd["params"])
-        self.state.ref_net.load_params_(sd["ref_params"])
-        load_adam_state(self.net, self.state.optimizer, sd["adam"])
-        self.state.update_count = int(sd["update_count"])
+        """``load_dqn_state(self.state, sd)``."""
+        load_dqn_state(self.state, sd)
 
     def state_dict(self) -> dict:
         """``dqn_state_dict`` plus ``total_steps`` and the key (not the

@@ -3,9 +3,9 @@ runs it, on the CPU with a tiny net on a 12 x 8 board: ``train`` for 2
 iterations with a league round, ``train --resume`` for one more (its
 league pool re-seeded from the saved snapshots),
 ``eval`` of the result against random, and ``print-config`` (also
-``--diff``).  What is not ported exits with a message naming its ROADMAP
-item.  The DQN and league-pool paths of ``train`` and ``eval`` are in
-tests/test_torch_cli_dqn.py.
+``--diff``).  The DQN and league-pool paths of ``train`` and ``eval`` are
+in tests/test_torch_cli_dqn.py, the process runtime, ``train
+--distributed``, ``bench`` and ``play`` in tests/test_torch_cli_process.py.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
@@ -21,7 +21,6 @@ import sys  # noqa: E402
 
 import pytest  # noqa: E402
 
-from drl_tetris_tpu_torch.cli.main import main  # noqa: E402
 from drl_tetris_tpu_torch.runtime import checkpoint as ckpt  # noqa: E402
 
 TINY = ["tower_layers=1", "tower_filters=8", "val_layers=1", "val_filters=8",
@@ -110,20 +109,3 @@ def test_print_config(session):
     assert "'gamma': 0.5" in out and "value_lr" in out
     diff = session["diff"]
     assert "run_geometry" in diff and "game_size" in diff
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["play"], "ROADMAP 15"),
-    (["bench"], "ROADMAP 10"),
-    (["up"], "ROADMAP 14"),
-    (["train", "--distributed", "--device", "cpu"], "ROADMAP 14"),
-    (["worker"], "ROADMAP 14"),
-    (["kv"], "ROADMAP 14"),
-    (["trainer"], "ROADMAP 14"),
-    (["train", "--multihost", "--device", "cpu"], "ROADMAP 14"),
-    (["train", "--distributed", "--device", "cpu", "--presets", "default",
-      "sventon", "sventon_dqn", "experiment_sixten"], "ROADMAP 14"),
-])
-def test_unported_paths_name_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit, match=item):
-        main(argv)

@@ -10,7 +10,9 @@ Elo and scoreboard (utils/) against the JAX package's.
   key chain) against an ``argmax`` PPONet, 4 games per pair.
 * The training league snapshots, plays the random anchor, its fixed
   anchors and its pool, and appends one refit per evaluation to ``elo_history.jsonl``.
-* An unknown agent kind and rendering raise.
+* An unknown agent kind raises, rendered or not; a rendered round robin
+  prints a frame a tick (tests/test_torch_render.py holds the frames
+  against JAX's).
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
@@ -179,19 +181,26 @@ def test_epsilon_qnet_round_robin_matches_jax():
     assert sum(got.games.values()) == 8 and sum(got.wins.values()) > 0
 
 
-def test_unported_kinds_and_render_raise():
+def test_unported_kinds_and_render_raise(capsys):
     """Every kind of the JAX package is played (tests/
-    test_torch_cli_world_model.py); an unknown kind and rendering raise."""
+    test_torch_cli_world_model.py); an unknown kind raises, rendered or
+    not.  Rendering is ported: a rendered round robin prints one frame a
+    tick with the probe lines."""
     net = port_net(board_params(3))
     env = EnvConfig(engine=EngineConfig(height=H, width=W))
     a = evaluate.EvalAgent("a", net)
     assert set(evaluate.KINDS) == {"macro", "world_model",
                                    "world_model_full", "sherlock",
                                    "sherlock_full"}
-    with pytest.raises(ValueError, match="unknown kind"):
-        evaluate.play_match(env, (a, dataclasses.replace(a, kind="keys")))
-    with pytest.raises(NotImplementedError, match="ROADMAP 15"):
-        evaluate.round_robin(env, [a, a], render=True)
+    for render in (False, True):
+        with pytest.raises(ValueError, match="unknown kind"):
+            evaluate.play_match(env, (a, dataclasses.replace(a, kind="keys")),
+                                render=render)
+    board = evaluate.round_robin(env, [a, dataclasses.replace(a, name="b")],
+                                 games_per_pair=2, render=True)
+    assert sum(board.games.values()) == 2 * 2     # both seats' counts
+    frames = capsys.readouterr().out.split("\x1b[2J\x1b[H")[1:]
+    assert frames and all(" H=" in f and " a" in f for f in frames)
 
 
 def test_training_league(tmp_path):
