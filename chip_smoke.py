@@ -27,17 +27,19 @@ points a user calls, and times them:
      at the ragged count, dones on every path;
 3. the self-play path (the acting loop of training): make_rollout_fn with
    TetrisVectorEnv(EnvConfig(), 1024) and PPONet(ModelConfig()) at full
-   width in bfloat16, weights drawn from a numpy seed, horizon 64.  The
+   width in bfloat16, weights drawn from a numpy seed, horizon 64, the
+   sampling noise drawn from a key (the JAX package's categorical).  The
    one-tick entry must launch exactly once per tick; the trajectory is
    replayed through the one-tick entry, every tick held against the plain
    engine, and must agree; the net at float32
    agrees with the CPU on a few boards;
 4. the training iteration, the main path: StandaloneTrainer with the
    r5_learning settings (config.load), 1024 games x horizon 64, minibatch
-   64, TRAIN_EPOCHS (2) of the recipe's 4 epochs (2,048 Adam steps; a
-   cut: at 4 epochs the script took 1,215.6 s on an H100 80GB HBM3 at
-   700 W whose host ran 39 ms an Adam step; ``bench`` times the whole
-   recipe), the full-width bf16
+   64, TRAIN_EPOCHS (1) of the recipe's 4 epochs (1,024 Adam steps; a
+   cut of this phase alone: at 4 epochs the script took 1,215.6 s on an
+   H100 80GB HBM3 at 700 W whose host ran 39 ms an Adam step, at 2
+   956.5 s on one at 49 ms; ``bench`` times the whole recipe), the
+   full-width bf16
    net from flax-matched initial weights.  One warm-up iteration at the same
    shapes with its update cut to 64 minibatch steps of one epoch (the cut
    that keeps the later phases inside the time limit), then one timed
@@ -53,7 +55,16 @@ points a user calls, and times them:
    CPU (first-step gradients and loss terms).  Every float32 on the card
    is IEEE float32 (TF32 off, set by the entry points; the script checks
    the flags once the trainer is built), so each check runs at the
-   precision ``train`` runs at;
+   precision ``train`` runs at; then (phase_seed) a seed gives the JAX
+   package's run: the trainer of data/seed_fixture.npz (seed 7, the
+   full-width net at float32, 64 games x 4 ticks) through
+   ``train_iteration`` on the card against JAX's draws in the file (the
+   initial params from kinit, the threefry bits of the first tick's
+   noise, the 256 actions of the first rollout), and the rollout's
+   batched noise draw at 1024 x 64 x 40 timed against step 4's rollout
+   phase (under 1%); step 3 counts the acting loop's kernels per tick
+   with the noise drawn and given (equal: the draw runs once, before the
+   loop);
 5. checkpoints, the command line and evaluation (phase_cli):
    - the trained trainer of step 4 (3,602,996 parameters with Adam's
      moments) saved with runtime/checkpoint.save and restored into a fresh
@@ -112,8 +123,9 @@ points a user calls, and times them:
    rows, targets, first-step gradients, new priorities);
 7. dual-policy training (phase_dual, phase_dual_dqn): DualPolicyTrainer
    at the default stack and r5_learning (single_policy=False), 256 games
-   x horizon 64, minibatch 64, 4 epochs (8,192 samples and 512 Adam steps
-   per policy), a warm-up iteration with its updates cut to 64 minibatch
+   x horizon 64, minibatch 64, the recipe's 4 epochs (8,192 samples and
+   512 Adam steps per policy), a warm-up iteration with its updates cut
+   to 64 minibatch
    steps and one timed; DualPolicyDQNTrainer at the DQN stack, 1024 x 64, two
    2,000,000-row replays (32,768 rows per policy per iteration), one
    iteration.  Each: one one-tick launch per tick (both nets act on every
@@ -224,9 +236,9 @@ N_RAGGED, T_EXTRA = 1001, 48       # ragged game count (its last block of 4
                                    # games has 1); ticks of the extra
                                    # comparisons
 DEV = "cuda"
-TRAIN_EPOCHS = 2                   # [train]'s epochs, the recipe's 4 cut
-                                   # to keep the script inside its limit
-                                   # on a slow host (printed)
+TRAIN_EPOCHS = 1                   # [train]'s epochs, the recipe's 4
+                                   # cut to keep the script inside its
+                                   # limit on a slow host (printed)
 WARM_MINIBATCHES = 64              # the PPO warm-up updates' depth (cut)
 TRAIN_SEED = 7
 # float32 on the card is IEEE float32, the precision every entry point
@@ -239,7 +251,8 @@ NET_TOL = 1e-4
 # first-step gradients relative to each leaf's largest |g| (a full-width
 # net's float32 sums in another order: measured 2.8e-5; under TF32
 # 8.5e-3, which this tolerance rejects), and the last of the 4 steps' loss
-# terms relative (measured 1.8e-4: 3 Adam steps amplify ulps)
+# terms relative to the larger of their own size and the loss's scale
+# (measured 1.8e-4: 3 Adam steps amplify ulps)
 UPDATE_GRAD_TOL = 1e-3
 UPDATE_STAT_TOL = 2e-3
 CLI_ENVS, CLI_HORIZON = 128, 32     # the CLI's train geometry here
@@ -439,7 +452,7 @@ def phase_selfplay(results, card):
     """The acting loop of training, through its entry points."""
     from drl_tetris_tpu_torch.algos.rollout import (make_policy_fn,
                                                     make_rollout_fn)
-    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.engine import cuda_tick, rng
     from drl_tetris_tpu_torch.engine.checks import hold_ticks, max_abs_err
     from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
     from drl_tetris_tpu_torch.models.convert import seeded_state_dict
@@ -450,16 +463,16 @@ def phase_selfplay(results, card):
     net = PPONet(ModelConfig(), device=DEV).eval()
     net.load_state_dict(seeded_state_dict(net, 3))
     rollout = make_rollout_fn(env, net, HORIZON)
-    gen = torch.Generator(device=DEV).manual_seed(5)
+    key = rng.prng_key(5, DEV)
 
     warm = env.reset(1)
-    rollout(warm, gen)                       # cuDNN autotuning, allocator
+    rollout(warm, key)                       # cuDNN autotuning, allocator
     st0 = env.reset(2)
     for k in cuda_tick.LAUNCHES:
         cuda_tick.LAUNCHES[k] = 0
     sync()
     t0 = time.perf_counter()
-    st, seg, last = rollout(st0, gen)
+    st, seg, last = rollout(st0, key)
     sync()
     secs = time.perf_counter() - t0
     launches = dict(cuda_tick.LAUNCHES)
@@ -506,11 +519,15 @@ def phase_selfplay(results, card):
     # where a tick's time goes: the policy (observe, PPONet forward,
     # sample) against the env step (the one-tick entry and its wrapper)
     policy = make_policy_fn(env, net)
+    cols = 4 * cfg.engine.width
+    noise = rng.gumbel(key, (N, cols))      # a tick's share of the draw
     with torch.no_grad():
-        policy_ms = cuda_ms(lambda: policy(st, gen), 20)
+        policy_ms = cuda_ms(lambda: policy(st, noise), 20)
     r0, t0_ = seg.rot[0], seg.trans[0]
     env_ms = cuda_ms(lambda: env.step(st, r0, t0_), 50)
     net_err = net_card_vs_cpu(env, st0)
+    tick_kernels, given_kernels, draw_kernels, parent_draw = acting_kernels(
+        env, net, st0)
     sps = N * T / secs
     results["selfplay_reset_share"] = grew / (N * T)
     log(f"[self-play] {card}: {N} games x {T} ticks in {secs:.3f} s = "
@@ -519,11 +536,109 @@ def phase_selfplay(results, card):
         f"rewards +1 x{wins}, -1 x{losses}; one-tick launches "
         f"{launches['step']}; plain replay max err {env_err}; net f32 card "
         f"vs cpu max err {net_err:.2e}")
+    log(f"[self-play] {card}: {tick_kernels:.1f} device kernels per acting "
+        f"tick ({given_kernels:.1f} with the noise given); the rollout's "
+        f"noise draw, once per iteration before the loop, {draw_kernels} "
+        f"kernels; the parent drew per tick ({parent_draw} kernels: "
+        f"torch.rand and the two logs), so its tick was "
+        f"{tick_kernels + parent_draw:.1f}")
+    if tick_kernels > given_kernels + 1:
+        raise AssertionError(f"{tick_kernels} kernels per acting tick drawing "
+                             f"the noise, {given_kernels} given it: the draw "
+                             "is not outside the loop")
     for k in cuda_tick.LAUNCHES:             # the timing calls above
         cuda_tick.LAUNCHES[k] = 0
     results.update(selfplay_s=secs, selfplay_sps=sps, policy_ms=policy_ms,
                    env_step_ms=env_ms, step_launches=launches["step"],
-                   net_err=net_err)
+                   net_err=net_err, acting_tick_kernels=tick_kernels,
+                   noise_draw_kernels=draw_kernels,
+                   parent_draw_kernels=parent_draw)
+
+
+def acting_kernels(env, net, st):
+    """(device kernels per tick of the acting loop, the same with the noise
+    given, kernels of the rollout's batched noise draw, kernels of the
+    parent's per-tick draw): profiles of rollouts of 2 and 6 ticks, whose
+    difference over 4 ticks leaves out what runs once (the draw, the
+    bootstrap value, the stacking), and of the two draws alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn
+    from drl_tetris_tpu_torch.engine import rng
+    from drl_tetris_tpu_torch.utils.metrics import device_kernels
+
+    def count(fn):
+        fn()                                 # cuDNN, allocator
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        return len(device_kernels(prof))
+
+    key = rng.prng_key(9, DEV)
+    n, cols = env.n_games, 4 * env.cfg.engine.width
+    short, long_ = (make_rollout_fn(env, net, h) for h in (2, 6))
+    per_tick = (count(lambda: long_(st, key)) - count(
+        lambda: short(st, key))) / 4
+    g = rng.gumbel(rng.split(key, 6), (n, cols))
+    given = (count(lambda: long_(st, gumbel=g)) - count(
+        lambda: short(st, gumbel=g[:2]))) / 4
+    draw = count(lambda: rng.gumbel(rng.split(key, HORIZON), (n, cols)))
+
+    def parent_draw():                       # the parent's gumbel_noise
+        u = torch.rand((n, cols), device=DEV)
+        return -torch.log(-torch.log(torch.clamp(u, min=1e-38)))
+    return per_tick, given, draw, count(parent_draw)
+
+
+def phase_seed(results, card):
+    """A seed gives JAX's run on the card (runtime/seeded.py): the trainer
+    of data/seed_fixture.npz (seed 7, the full-width net at float32, 64
+    games, horizon 4) through ``train_iteration``, held against JAX's
+    draws there: the initial params (first 8 values of every leaf, sums,
+    sums of squares within INIT_RTOL), the threefry bits of the first
+    tick's noise on the card, and the 256 actions of the first rollout.
+    Then the rollout's batched noise draw at the main path's shapes
+    (HORIZON keys x N_SLICE games x 40 actions), timed against [train]'s
+    rollout phase of the same call: it must stay under 1% of it."""
+    from drl_tetris_tpu_torch.engine import cuda_tick, rng
+    from drl_tetris_tpu_torch.runtime import seeded
+
+    t0 = time.perf_counter()
+    launches_reset()
+    errs = seeded.fixture_errors(DEV)
+    sync()
+    launches = dict(cuda_tick.LAUNCHES)
+    tr = errs.pop("trainer")
+    seeded.check_fixture(errs)
+    if launches["step"] != seeded.TICKS:
+        raise AssertionError(f"launches {launches} for {seeded.TICKS} ticks")
+    cuda_tick.raise_if_overflowed(tr.env_state.current_player.device)
+    keys = rng.split(rng.prng_key(TRAIN_SEED, DEV), HORIZON)
+    cols = 4 * tr.cfg.env.engine.width
+    draw_ms = cuda_ms(lambda: rng.gumbel(keys, (N_SLICE, cols)), 10)
+    rollout_ms = results["train_phase_ms"]["rollout"]
+    share = draw_ms / rollout_ms
+    secs = time.perf_counter() - t0
+    log(f"[seed] {card}: StandaloneTrainer(seed={seeded.SEED}) on the card "
+        f"is JAX's run: {errs['exact_leaves']} of {errs['leaves']} leaves' "
+        f"first values bit-exact, largest gaps {errs['head']:.2e} (values), "
+        f"{errs['sum']:.2e} (sums), {errs['sumsq']:.2e} (sums of squares); "
+        f"noise bits {errs['noise_bits']} differ, actions "
+        f"{errs['actions']} of {2 * seeded.GAMES * seeded.TICKS} differ; "
+        f"{secs:.1f} s")
+    log(f"[seed] {card}: the batched noise draw of an iteration "
+        f"({HORIZON} x {N_SLICE} x {cols} float32, "
+        f"{HORIZON * N_SLICE * cols * 4 / 1e6:.1f} MB) {draw_ms:.3f} ms = "
+        f"{100 * share:.3f}% of [train]'s rollout phase {rollout_ms:.1f} ms; "
+        f"this host's Adam step {results['train_ms_per_step']:.3f} ms")
+    if not share < 0.01:
+        raise AssertionError(f"the noise draw takes {100 * share:.2f}% of "
+                             "the rollout")
+    launches_reset()
+    results.update(seed_s=secs, seed_draw_ms=draw_ms, seed_draw_share=share,
+                   seed_errs=errs)
 
 
 def net_card_vs_cpu(env, state):
@@ -688,10 +803,11 @@ def update_card_vs_cpu(results, card, env, env_state, ppo_cfg):
     from drl_tetris_tpu_torch.algos import ppo as P
     from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn
 
+    from drl_tetris_tpu_torch.engine import rng
+
     cfg = dataclasses.replace(ppo_cfg, n_train_epochs=1)
-    gen = torch.Generator(device=env.device).manual_seed(13)
     _, seg, last = make_rollout_fn(env, seeded_f32_net(env, 3), 1)(
-        env_state, gen)
+        env_state, rng.prng_key(13, env.device))
     batch, _ = P.segment_to_batch(cfg, seg, last)
     grad_err, stat_err = hold_ppo_update(card, "[train]", env.cfg.engine,
                                          cfg, batch, 3)
@@ -744,7 +860,11 @@ def hold_ppo_update(card, tag, engine, cfg, batch, seed):
             for k, ref in g_cpu.items()}
     worst = sorted(errs, key=errs.get, reverse=True)[:3]
     grad_err = errs[worst[0]]
-    stat_errs = {k: abs(s_card[k] - v) / max(abs(v), 1e-6)
+    # each term's error against the larger of its own size and the loss's
+    # scale (its largest term): a term near zero, as the entropy-floor
+    # penalty's mean of relu(floor - H) can be, is held absolutely
+    scale = max(abs(v) for k, v in s_cpu.items() if k.startswith("losses/"))
+    stat_errs = {k: abs(s_card[k] - v) / max(abs(v), scale)
                  for k, v in s_cpu.items() if "saturation" not in k}
     worst_stat = max(stat_errs, key=stat_errs.get)
     stat_err = stat_errs[worst_stat]
@@ -756,8 +876,9 @@ def hold_ppo_update(card, tag, engine, cfg, batch, seed):
         f"worst leaves "
         f"{', '.join(f'{k} {errs[k]:.2e}' for k in worst)}; median "
         f"{sorted(errs.values())[len(errs) // 2]:.2e}), last-step loss "
-        f"terms {stat_err:.3e} relative ({worst_stat}; tolerance "
-        f"{UPDATE_STAT_TOL}), saturations {sat_err}")
+        f"terms {stat_err:.3e} of max(|term|, loss scale {scale:.3e}) "
+        f"({worst_stat}; tolerance {UPDATE_STAT_TOL}), saturations "
+        f"{sat_err}")
     if not (grad_err < UPDATE_GRAD_TOL and stat_err < UPDATE_STAT_TOL
             and sat_err <= 1.0 / cfg.minibatch_size):
         raise AssertionError(f"{tag} the update on the card disagrees with "
@@ -928,7 +1049,7 @@ def phase_cli(results, card):
 
     from drl_tetris_tpu_torch.config.presets import CLI_PRESETS
     from drl_tetris_tpu_torch.algos.rollout import policy_inputs
-    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.engine import cuda_tick, rng
     from drl_tetris_tpu_torch.models.nets import PPONet
     from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
     from drl_tetris_tpu_torch.runtime import evaluate
@@ -1162,7 +1283,7 @@ def phase_cli(results, card):
     # 4. a round robin in process at full width: one launch per match tick
     e = tr.cfg.env.engine
     rnd = PPONet(tr.cfg.model, board=(e.height, e.width), device=DEV)
-    rnd.init_flax_(torch.Generator().manual_seed(0xE10))
+    rnd.init_flax_(rng.prng_key(0xE10))
     agents = [evaluate.EvalAgent("trained", tr.net.eval()),
               evaluate.EvalAgent("random", rnd.eval(), distribution="pi")]
     # one warm match at the round robin's shapes (cuDNN, allocator)
@@ -1328,10 +1449,11 @@ def phase_process(results, card):
              "--n-envs", str(PROC_ENVS), "--horizon", str(PROC_HORIZON),
              "--seed", str(PROC_SEED), "--set",
              f"n_samples_each_update={PROC_SAMPLES}"]), "up")
-    # the workers race for the slots: worker0 may hold worker-1
-    slot = re.search(r"\[worker0\] claimed slot (worker-\d+)", out)
-    slot = slot[1] if slot else "worker-0"
+    # up lets worker0 claim its slot before the others start, so it holds
+    # worker-0, the first slot its replacement finds free
+    slot = "worker-0"
     for want in ("trainer: update 2", "[up] CHAOS: SIGTERM worker0",
+                 f"[worker0] claimed slot {slot} ",
                  f"[worker0b] claimed slot {slot} ",
                  f"[worker0b] {slot}: recovered state from store"):
         if want not in out:
@@ -1369,7 +1491,7 @@ def phase_distributed(results, card):
     import tempfile
 
     from drl_tetris_tpu_torch.cli.main import main as cli_main
-    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.engine import cuda_tick, rng
     from drl_tetris_tpu_torch.models.nets import PPONet
     from drl_tetris_tpu_torch.parallel.mesh import backend_for
     from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
@@ -1404,7 +1526,7 @@ def phase_distributed(results, card):
     fw = process_fw()
     e = fw.env.engine
     init = PPONet(fw.model, board=(e.height, e.width), device="cpu")
-    init.init_flax_(torch.Generator().manual_seed(3))
+    init.init_flax_(rng.split(rng.prng_key(3))[0])   # --seed 3's kp
     moved = max(float(np.abs(raw["params"][k] - v.numpy()).max())
                 for k, v in init.state_dict().items())
     if not moved > 0.0:
@@ -1773,8 +1895,9 @@ def moved_and_trained(stats, nets, before):
 
 def phase_dual(results, card):
     """Dual-policy PPO (single_policy=False) at the CLI's default stack
-    and r5_learning: DUAL_ENVS games x HORIZON ticks, minibatch 64, 4
-    epochs (8,192 samples per policy).  Both nets act every tick, one
+    and r5_learning: DUAL_ENVS games x HORIZON ticks, minibatch 64,
+    the recipe's 4 epochs (8,192 samples per policy).
+    Both nets act every tick, one
     one-tick launch per tick; the merge and split with unsigned-gamma GAE;
     a PPO update of each policy the win-rate gate lets train.  One
     warm-up iteration (its updates cut to WARM_MINIBATCHES steps) whose
@@ -1784,7 +1907,7 @@ def phase_dual(results, card):
     from drl_tetris_tpu_torch import config
     from drl_tetris_tpu_torch.algos.dual import (make_dual_rollout_fn,
                                                  split_dual_segment)
-    from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.engine import cuda_tick, rng
     from drl_tetris_tpu_torch.runtime.standalone import (DualPolicyConfig,
                                                          DualPolicyTrainer)
     mc = config.load("r5_learning")
@@ -1847,8 +1970,8 @@ def phase_dual(results, card):
     # one dual batch (2 ticks of both float32 nets on the trainer's games)
     # through the update on the card and on the CPU
     nets = [seeded_f32_net(tr.env, seed) for seed in (3, 4)]
-    gen = torch.Generator(device=DEV).manual_seed(13)
-    _, seg, last = make_dual_rollout_fn(tr.env, nets, 2)(tr.env_state, gen)
+    _, seg, last = make_dual_rollout_fn(tr.env, nets, 2)(
+        tr.env_state, rng.prng_key(13, tr.env.device))
     one = dataclasses.replace(ppo, n_train_epochs=1)
     b0, _, _ = split_dual_segment(one, seg, last)
     grad_err, stat_err = hold_ppo_update(card, "[dual]", cfg.env.engine,
@@ -2536,7 +2659,7 @@ def main():
     t0 = time.perf_counter()
     baseline = phase_build(results, card, opts.baseline)
     for phase in (phase_kernel_vs_plain, phase_selfplay, phase_train,
-                  phase_cli, phase_demo, phase_play, phase_process,
+                  phase_seed, phase_cli, phase_demo, phase_play, phase_process,
                   phase_distributed, phase_bench, phase_dqn, phase_dual,
                   phase_dual_dqn, phase_architectures, phase_sixten,
                   phase_sherlock, phase_placement_eval, phase_engine):
@@ -2551,7 +2674,10 @@ def main():
               "w") as f:
         json.dump(results, f, indent=1)
     log(f"train {results['train_sps']:.1f} env-steps/s (train_mfu "
-        f"{results['train_mfu']:.5f}), DQN {results['dqn_sps']:.1f} "
+        f"{results['train_mfu']:.5f}; {results['train_ms_per_step']:.3f} "
+        f"ms per Adam step; noise draw {results['seed_draw_ms']:.3f} ms, "
+        f"{100 * results['seed_draw_share']:.3f}% of the rollout), DQN "
+        f"{results['dqn_sps']:.1f} "
         f"env-steps/s, dual PPO {results['dual_sps']:.1f} at {DUAL_ENVS} x "
         f"{HORIZON}, dual DQN {results['dual_dqn_sps']:.1f}, CLI train {results['cli_train_sps']:.1f}"
         f" env-steps/s at {CLI_ENVS} x {CLI_HORIZON}, match "

@@ -8,7 +8,7 @@ params pytrees.  Here the weights live in ``nn.Module``s and the data in
 tensors, and every built-in family satisfies these protocols:
 
   worker side (sventon_agent.py:56-169):
-    policy_fn(env_state, generator=None, gumbel=None, key=None, hp=None)
+    policy_fn(env_state, gumbel=None, key=None, hp=None)
         -> action fields and recorded internals
         (algos/rollout.py make_policy_fn; algos/sixten.py
         make_sixten_policy, algos/sherlock.py make_sherlock_policy)

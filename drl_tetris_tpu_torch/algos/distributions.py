@@ -4,24 +4,23 @@ Counterpart of ``drl_tetris_tpu/algos/distributions.py`` (reference:
 sventon_utils.py:15-65).  Each function takes A: (N, R, T) scores for the
 acting piece and returns ((r, t), entropy) with (N,) index tensors.
 
-``jax.random.categorical`` samples ``argmax(log p + gumbel)``; the port does
-the same with gumbel noise drawn from an explicit ``torch.Generator``, or
-taken as given (``gumbel``, (N, R*T)) so that a test can replay JAX's draws.
-Pareto sampling is such a categorical too.  Epsilon-greedy follows JAX's
-key exactly: ``split(key, 3)``, two ``randint`` and one ``uniform`` through
-the port's threefry (engine/rng.py), which is bit-exact with those.
+``jax.random.categorical(key, logits)`` is ``argmax(gumbel + logits)``
+with ``jax.random.gumbel(key, logits.shape)`` (mode 'low' in JAX 0.9);
+``categorical`` draws that noise from the key through the port's threefry
+(engine/rng.py ``gumbel``: the bits are JAX's, the logs within an ulp of
+XLA's).  ``action_distribution`` and ``action_pareto`` take the noise as a
+tensor (``gumbel``, (N, R*T)), which a rollout draws for all its ticks at
+once from their keys (``rng.gumbel`` over a batch of keys) or a test
+gives.  Epsilon-greedy
+follows JAX's key exactly: ``split(key, 3)``, two ``randint`` and one
+``uniform``.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import numpy as np
 import torch
 
 from drl_tetris_tpu_torch.engine import rng
-
-_TINY = torch.finfo(torch.float32).tiny
-
 
 def _unravel(idx, T):
     return idx // T, idx % T
@@ -33,23 +32,19 @@ def action_argmax(A: torch.Tensor):
     return _unravel(idx, T), torch.zeros(N, device=A.device)
 
 
-def gumbel_noise(shape, generator: Optional[torch.Generator] = None,
-                 device=None) -> torch.Tensor:
-    """-log(-log(u)), u uniform on [tiny, 1) (jax.random.gumbel's form)."""
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
-    return -torch.log(-torch.log(torch.clamp(u, min=_TINY)))
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """jax.random.categorical(key, logits, axis=-1) of (N, K) logits: the
+    argmax of logits plus JAX's gumbel draw from the (2,) key."""
+    g = rng.gumbel(key.to(logits.device), tuple(logits.shape))
+    return torch.argmax(g + logits, dim=-1)
 
 
-def action_distribution(A: torch.Tensor,
-                        generator: Optional[torch.Generator] = None,
-                        gumbel: Optional[torch.Tensor] = None):
-    """Sample (r, t) ~ A, a probability map (the PPO policy)."""
+def action_distribution(A: torch.Tensor, gumbel: torch.Tensor):
+    """Sample (r, t) ~ A, a probability map (the PPO policy), with the
+    categorical's noise ``gumbel`` (N, R*T)."""
     N, R, T = A.shape
     p = A.reshape(N, -1)
     logp = torch.log(torch.clamp(p, min=1e-20))
-    if gumbel is None:
-        gumbel = gumbel_noise(p.shape, generator, p.device)
     idx = torch.argmax(gumbel.to(p.device) + logp, dim=-1)
     ent = -torch.sum(p * torch.log(p + 1e-6), dim=-1)
     return _unravel(idx, T), ent
@@ -98,14 +93,11 @@ def pareto(x: torch.Tensor, temperature) -> torch.Tensor:
     return p / torch.sum(p, dim=-1, keepdim=True)
 
 
-def action_pareto(A: torch.Tensor, temperature,
-                  generator: Optional[torch.Generator] = None,
-                  gumbel: Optional[torch.Tensor] = None):
-    """Sample (r, t) from the pareto map of A's scores."""
+def action_pareto(A: torch.Tensor, temperature, gumbel: torch.Tensor):
+    """Sample (r, t) from the pareto map of A's scores, with the
+    categorical's noise ``gumbel`` (N, R*T)."""
     N, R, T = A.shape
     p = pareto(A.reshape(N, -1), temperature)
-    if gumbel is None:
-        gumbel = gumbel_noise(p.shape, generator, p.device)
     idx = torch.argmax(gumbel.to(p.device) + torch.log(p), dim=-1)
     ent = -torch.sum(p * torch.log(p + 1e-12), dim=-1)
     return _unravel(idx, T), ent

@@ -31,29 +31,33 @@ from drl_tetris_tpu_torch.algos.gae import sventon_gae
 from drl_tetris_tpu_torch.algos.ppo import Batch, PPOConfig
 from drl_tetris_tpu_torch.algos.rollout import (HParams, Segment, _finish,
                                                 _tick, _tick_keys,
-                                                make_policy_fn)
+                                                action_size, make_policy_fn,
+                                                rollout_gumbel)
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.env.env import EnvState, TetrisVectorEnv
 
 
 def make_dual_rollout_fn(env: TetrisVectorEnv, nets: Sequence, horizon: int,
                          distribution: str = "pi", **policy_kwargs):
-    """rollout(env_state, generator=None, gumbel=None, key=None, hp=None)
-    -> (env_state', Segment, v_last (N,)) with ``nets[0]`` acting for
-    player 0 and ``nets[1]`` for player 1; the Segment's ``player`` says
-    which acted.  PPONets (pi sampling) or QNets (epsilon or pareto).
+    """rollout(env_state, key=None, gumbel=None, hp=None) -> (env_state',
+    Segment, v_last (N,)) with ``nets[0]`` acting for player 0 and
+    ``nets[1]`` for player 1; the Segment's ``player`` says which acted.
+    PPONets (pi sampling) or QNets (epsilon or pareto).
 
-    As in JAX, each tick's key is split into (k0, k1), one per policy, so
-    the epsilon draws follow JAX's keys.  ``gumbel`` ((horizon, 2, N,
-    R*W)) replaces the pi or pareto noise of both policies."""
+    As in JAX, each tick's key is split into (k0, k1), one per policy, and
+    every draw follows them: the pi or pareto noise of both policies and
+    all ticks is drawn before the loop, (horizon, 2, N, R*W), unless
+    ``gumbel`` gives it."""
     policies = [make_policy_fn(env, net, distribution, **policy_kwargs)
                 for net in nets]
 
-    def acting(env_state: EnvState, generator=None, gumbel=None, key=None,
+    shape = (2, env.n_games, action_size(nets[0]))
+
+    def acting(env_state: EnvState, gumbel=None, key=None,
                hp: Optional[HParams] = None):
         keys = (None, None) if key is None else rng.split(key)
-        outs = [p(env_state, generator, None if gumbel is None else gumbel[i],
-                  k, hp) for i, (p, k) in enumerate(zip(policies, keys))]
+        outs = [p(env_state, None if gumbel is None else gumbel[i], k, hp)
+                for i, (p, k) in enumerate(zip(policies, keys))]
         mine = env_state.current_player == 0
 
         def pick(a, b):
@@ -64,18 +68,17 @@ def make_dual_rollout_fn(env: TetrisVectorEnv, nets: Sequence, horizon: int,
                                      zip(outs[0][1:], outs[1][1:]))
 
     @torch.no_grad()
-    def rollout(env_state: EnvState,
-                generator: Optional[torch.Generator] = None, gumbel=None,
-                key=None, hp: Optional[HParams] = None):
+    def rollout(env_state: EnvState, key=None, gumbel=None,
+                hp: Optional[HParams] = None):
+        gumbel = rollout_gumbel(key, horizon, shape, distribution, gumbel)
         keys, last_key = _tick_keys(key, horizon, distribution)
         ticks = []
         for k in range(horizon):
-            env_state, seg = _tick(env, acting, env_state, generator,
+            env_state, seg = _tick(env, acting, env_state,
                                    None if gumbel is None else gumbel[k],
                                    keys[k], hp)
             ticks.append(seg)
-        return _finish(env_state, ticks, acting, generator, gumbel,
-                       last_key, hp)
+        return _finish(env_state, ticks, acting, gumbel, last_key, hp)
 
     return rollout
 

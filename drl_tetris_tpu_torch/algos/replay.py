@@ -13,8 +13,8 @@ device, and sampling on the device:
   * sampling without replacement by Gumbel-top-k (``torch.topk`` over
     log p + g), with importance weights (n p)^-beta, max-normalised
     (experience_replay.py:58-59).  The gumbel noise follows JAX's key
-    (``jax_gumbel``: the port's threefry uniform, then -log(-log u)), or
-    is given.
+    (``engine/rng.gumbel``: the port's threefry uniform, then
+    -log(-log u)), or is given.
 
 A (T, N) segment is written env-major so each env's run is contiguous in
 time; the last k rows of every run get priority 0 so that no sampled
@@ -29,7 +29,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from drl_tetris_tpu_torch.algos.distributions import _TINY
 from drl_tetris_tpu_torch.algos.rollout import Segment
 from drl_tetris_tpu_torch.engine import rng
 
@@ -135,15 +134,6 @@ def sampling_probs(cfg: ReplayConfig, st: ReplayState, alpha
     return p_un / torch.sum(p_un)
 
 
-def jax_gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
-    """jax.random.gumbel(key, (n,)) from the port's threefry: uniform on
-    [tiny, 1), then -log(-log(u)).  The bits are JAX's; the logs may differ
-    by an ulp from XLA's."""
-    u = rng.uniform01(key, (n,))
-    u = torch.clamp(u * (1.0 - _TINY) + _TINY, min=_TINY)
-    return -torch.log(-torch.log(u))
-
-
 def replay_sample(cfg: ReplayConfig, st: ReplayState, n_samples: int,
                   alpha, beta, key: torch.Tensor,
                   gumbel: Optional[torch.Tensor] = None):
@@ -153,7 +143,7 @@ def replay_sample(cfg: ReplayConfig, st: ReplayState, n_samples: int,
     p = sampling_probs(cfg, st, alpha)
     M = p.shape[0]
     if gumbel is None:
-        gumbel = jax_gumbel(key.to(p.device), M)
+        gumbel = rng.gumbel(key.to(p.device), (M,))
     scores = torch.where(p > 0, torch.log(p) + gumbel.to(p.device),
                          -torch.inf)
     idx = torch.topk(scores, n_samples, sorted=True).indices

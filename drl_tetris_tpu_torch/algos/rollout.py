@@ -9,11 +9,14 @@ one-tick entry on the card (engine/cuda_tick.py), between policy forwards.
 
 The policy takes a PPONet (pi, v) or a QNet (Q, V, A), and samples with
 ``pi``, ``argmax``, ``epsilon``, ``adaptive_epsilon`` or
-``pareto_distribution``.  ``pi`` and pareto draw gumbel noise from an
-explicit ``torch.Generator``; ``gumbel`` ((horizon, N, R*W)) replaces it
-with given noise, so a test can follow the JAX rollout's draws.  The
-epsilon distributions follow JAX's keys exactly: ``key`` is the rollout's
-key, split into one per tick as JAX splits it.
+``pareto_distribution``.  Every draw follows JAX's keys: ``key`` is the
+rollout's key, split into one per tick as JAX splits it (``split(key,
+horizon)``; the pool rollout's pairs of ticks take the same keys in
+order).  ``pi`` and pareto are ``jax.random.categorical`` of each tick's
+key, whose gumbel noise depends on the keys only: the rollout draws the
+noise of all its ticks in one batched threefry pass before the acting
+loop, so the loop launches nothing for it.  ``gumbel`` ((horizon, N, R*W))
+replaces that noise with given noise.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ class HParams(NamedTuple):
 
 
 EPSILON_DISTRIBUTIONS = ("epsilon", "adaptive_epsilon")
+SAMPLED_DISTRIBUTIONS = ("pi", "pareto_distribution")
 DISTRIBUTIONS = ("pi", "argmax", "pareto_distribution") \
     + EPSILON_DISTRIBUTIONS
 
@@ -99,15 +103,16 @@ def make_policy_fn(env: TetrisVectorEnv, net, distribution: str = "pi",
     """sventon_agent.get_action (sventon_agent.py:56-98): net forward, a
     sample over the acting piece's (r, t) plane, and the recorded p(a)
     (the Q value for a QNet), v(s|piece), v(s).  The net's weights must be
-    on the env's device.  Returns policy(env_state, generator=None,
-    gumbel=None, key=None, hp=None); the epsilon distributions need
-    ``key``, a (2,) threefry key; ``hp`` (HParams) overrides ``epsilon``
-    and ``temperature``."""
+    on the env's device.  Returns policy(env_state, gumbel=None,
+    key=None, hp=None): ``key`` is the tick's (2,) threefry key, which the
+    epsilon distributions split and ``pi`` and pareto draw their
+    categorical from unless ``gumbel`` ((N, R*W)) gives its noise; ``hp``
+    (HParams) overrides ``epsilon`` and ``temperature``."""
     if distribution not in DISTRIBUTIONS:
         raise ValueError(distribution)
     _check_device(env, net)
 
-    def policy(env_state: EnvState, generator=None, gumbel=None, key=None,
+    def policy(env_state: EnvState, gumbel=None, key=None,
                hp: Optional[HParams] = None):
         if hp is None:
             hp = HParams(epsilon=epsilon, temperature=temperature)
@@ -118,8 +123,10 @@ def make_policy_fn(env: TetrisVectorEnv, net, distribution: str = "pi",
         n, R, W, P = scores.shape
         ppi = scores.gather(3, piece.long()[:, None, None, None].expand(
             n, R, W, 1))[..., 0]                    # (N, 4, W)
+        if gumbel is None and distribution in SAMPLED_DISTRIBUTIONS:
+            gumbel = rng.gumbel(key.to(ppi.device), (n, R * W))
         if distribution == "pi":
-            (r, t), _ = D.action_distribution(ppi, generator, gumbel)
+            (r, t), _ = D.action_distribution(ppi, gumbel)
         elif distribution == "argmax":
             (r, t), _ = D.action_argmax(ppi)
         elif distribution == "epsilon":
@@ -136,8 +143,7 @@ def make_policy_fn(env: TetrisVectorEnv, net, distribution: str = "pi",
                     np.float32(atl), np.float32(1e-6))
             (r, t), _ = D.action_epsilongreedy(ppi, key, eps)
         else:
-            (r, t), _ = D.action_pareto(ppi, hp.temperature, generator,
-                                        gumbel)
+            (r, t), _ = D.action_pareto(ppi, hp.temperature, gumbel)
         idx = torch.arange(n, device=ppi.device)
         prob = ppi[idx, r, t]
         v_piece, v_mean = _piece_values(v, piece)
@@ -158,14 +164,36 @@ def _tick_keys(key, horizon: int, distribution: str):
     return list(rng.split(key, horizon)), rng.fold_in(key, horizon)
 
 
-def _tick(env, policy, env_state, generator, gumbel, key, hp,
-          values=None):
+def action_size(net) -> int:
+    """R * T, the size of a net's action plane per piece."""
+    return net.cfg.n_rotations * net.action_columns
+
+
+def rollout_gumbel(key, horizon: int, shape, distribution: str,
+                   gumbel=None):
+    """The categorical noise of a rollout's ticks, (horizon, *shape):
+    ``gumbel`` if given, else for ``pi`` and pareto JAX's draw from each
+    tick's key of split(key, horizon) in one batched pass (``shape`` ends
+    in (N, R*W); a leading 2 is the dual rollout's (k0, k1) = split of
+    each tick's key); None for the other distributions."""
+    if gumbel is not None or distribution not in SAMPLED_DISTRIBUTIONS:
+        return gumbel
+    if key is None:
+        raise ValueError(f"distribution {distribution!r} needs the "
+                         "rollout's key")
+    keys = rng.split(key, horizon)
+    if len(shape) == 3:
+        keys = rng.split(keys, shape[0])
+    return rng.gumbel(keys, tuple(shape[-2:]))
+
+
+def _tick(env, policy, env_state, gumbel, key, hp, values=None):
     """One acting tick: (env_state', Segment of the tick).  ``values``,
     when given, recomputes v(s|piece), v(s) from the observation (the
     learner's values on an opponent's tick)."""
     player = env_state.current_player
     obs, piece, r, t, prob, v_piece, v_mean = policy(
-        env_state, generator, gumbel, key, hp)
+        env_state, gumbel, key, hp)
     if values is not None:
         v_piece, v_mean = values(obs, piece)
     occ = _perspective_occ(env_state, player)
@@ -176,13 +204,14 @@ def _tick(env, policy, env_state, generator, gumbel, key, hp,
                               player=player)
 
 
-def _finish(env_state, ticks, policy, generator, gumbel, key, hp):
+def _finish(env_state, ticks, policy, gumbel, key, hp):
     """Stack the ticks; the bootstrap value of the final state (the next
-    acting player's view; it does not depend on the sampled action)."""
+    acting player's view; it does not depend on the sampled action, so a
+    sampled policy gets zero noise and draws nothing)."""
     seg = Segment(*[torch.stack(xs) for xs in zip(*ticks)])
     _, _, _, _, _, v_piece_last, _ = policy(
-        env_state, generator,
-        None if gumbel is None else torch.zeros_like(gumbel[0]), key, hp)
+        env_state, None if gumbel is None else torch.zeros_like(gumbel[0]),
+        key, hp)
     if env_state.current_player.is_cuda:
         cuda_tick.raise_if_overflowed(env_state.current_player.device)
     return env_state, seg, v_piece_last
@@ -190,23 +219,24 @@ def _finish(env_state, ticks, policy, generator, gumbel, key, hp):
 
 def make_rollout_fn(env: TetrisVectorEnv, net, horizon: int,
                     distribution: str = "pi", **policy_kwargs):
-    """Returns rollout(env_state, generator=None, gumbel=None, key=None,
-    hp=None) -> (env_state', Segment, v_piece_last)."""
+    """Returns rollout(env_state, key=None, gumbel=None, hp=None) ->
+    (env_state', Segment, v_piece_last); ``key`` is the rollout's key
+    (JAX's kroll)."""
     policy = make_policy_fn(env, net, distribution, **policy_kwargs)
+    shape = (env.n_games, action_size(net))
 
     @torch.no_grad()
-    def rollout(env_state: EnvState,
-                generator: Optional[torch.Generator] = None, gumbel=None,
-                key=None, hp: Optional[HParams] = None):
+    def rollout(env_state: EnvState, key=None, gumbel=None,
+                hp: Optional[HParams] = None):
+        gumbel = rollout_gumbel(key, horizon, shape, distribution, gumbel)
         keys, last_key = _tick_keys(key, horizon, distribution)
         ticks = []
         for k in range(horizon):
-            env_state, seg = _tick(env, policy, env_state, generator,
+            env_state, seg = _tick(env, policy, env_state,
                                    None if gumbel is None else gumbel[k],
                                    keys[k], hp)
             ticks.append(seg)
-        return _finish(env_state, ticks, policy, generator, gumbel,
-                       last_key, hp)
+        return _finish(env_state, ticks, policy, gumbel, last_key, hp)
 
     return rollout
 
@@ -217,8 +247,8 @@ def make_pool_rollout_fn(env: TetrisVectorEnv, net, horizon: int,
     learner ``net`` acts on its parity of ticks, the opponent on the
     other, and GAE runs on the learner's values at every tick (the
     opponent only chooses actions); ``pool_segment_to_batch`` keeps the
-    learner's ticks.  Returns rollout(opp_net, env_state, generator=None,
-    gumbel=None, key=None, hp=None, learner_first=True) -> (env_state',
+    learner's ticks.  Returns rollout(opp_net, env_state, key=None,
+    gumbel=None, hp=None, learner_first=True) -> (env_state',
     Segment, v_piece_last); ``horizon`` must be even and ``learner_first``
     should alternate across iterations so the learner plays both seats.
     Every tick is one env step, one launch of the one-tick entry."""
@@ -231,24 +261,24 @@ def make_pool_rollout_fn(env: TetrisVectorEnv, net, horizon: int,
         _, v = _values(net(vec, vis))
         return _piece_values(v, piece)
 
+    shape = (env.n_games, action_size(net))
+
     @torch.no_grad()
-    def rollout(opp_net, env_state: EnvState,
-                generator: Optional[torch.Generator] = None, gumbel=None,
-                key=None, hp: Optional[HParams] = None,
-                learner_first: bool = True):
+    def rollout(opp_net, env_state: EnvState, key=None, gumbel=None,
+                hp: Optional[HParams] = None, learner_first: bool = True):
         opponent = make_policy_fn(env, opp_net, distribution,
                                   **policy_kwargs)
         seats = (policy, opponent) if learner_first else (opponent, policy)
+        gumbel = rollout_gumbel(key, horizon, shape, distribution, gumbel)
         keys, last_key = _tick_keys(key, horizon, distribution)
         ticks = []
         for k in range(horizon):
             acting = seats[k % 2]
             env_state, seg = _tick(
-                env, acting, env_state, generator,
+                env, acting, env_state,
                 None if gumbel is None else gumbel[k], keys[k], hp,
                 values=None if acting is policy else learner_values)
             ticks.append(seg)
-        return _finish(env_state, ticks, policy, generator, gumbel,
-                       last_key, hp)
+        return _finish(env_state, ticks, policy, gumbel, last_key, hp)
 
     return rollout

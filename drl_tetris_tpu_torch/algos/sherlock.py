@@ -14,7 +14,7 @@ placement fills:
 The deltas come from the placement enumeration (engine/masks.py): the
 top-drop grid (4, W) or the full top-drop and finesse pose grid
 (4, W, H).  Every draw follows JAX's keys through the port's threefry
-(``sixten.categorical``).
+(``distributions.categorical``).
 """
 from __future__ import annotations
 
@@ -25,16 +25,17 @@ import torch
 import torch.nn as nn
 
 from drl_tetris_tpu_torch import resolve_device
+from drl_tetris_tpu_torch.algos.distributions import categorical
 from drl_tetris_tpu_torch.algos.gae import sventon_gae
 from drl_tetris_tpu_torch.algos.rollout import (_perspective_occ,
                                                 _tick_keys, policy_inputs)
-from drl_tetris_tpu_torch.algos.sixten import categorical
 from drl_tetris_tpu_torch.engine import kernels as K
 from drl_tetris_tpu_torch.engine import masks as M
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine.core import SPAWN_ROT, EngineConfig
 from drl_tetris_tpu_torch.env.env import take_player
 from drl_tetris_tpu_torch.env.observations import field_grid
+from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 from drl_tetris_tpu_torch.models.nets import (VEC_DIM, ModelConfig,
                                               ResidualBlock, SventonNet,
                                               apply_visual_pad)
@@ -63,17 +64,16 @@ class SherlockNet(nn.Module):
                                   3, padding=1)
         self.to(resolve_device(device))
 
-    @torch.no_grad()
-    def init_flax_(self, generator: torch.Generator) -> "SherlockNet":
-        """Fresh weights with flax's initialisers (their distributions):
-        the trunk's, glorot-uniform for the phi tower, normal(0.01) for the
+    def init_flax_(self, key) -> "SherlockNet":
+        """Fresh weights from the init key ``key``: what the JAX
+        SherlockNet's ``init(key, ...)`` gives (models/flax_init.py): the
+        trunk's, glorot-uniform for the phi tower, normal(0.01) for the
         phi conv."""
-        self.trunk.init_flax_(generator)
-        self.phi_tower.init_flax_(generator)
-        self.phi_conv.weight.copy_(0.01 * torch.randn(
-            self.phi_conv.weight.shape, generator=generator,
-            device=generator.device))
-        self.phi_conv.bias.zero_()
+        init = FlaxInit(self, key)
+        self.trunk.init_flax_(init)
+        self.phi_tower.init_flax_(init)
+        init.normal(self.phi_conv.weight, 0.01)
+        init.zeros(self.phi_conv.bias)
         return self
 
     def load_params_(self, params) -> "SherlockNet":

@@ -12,9 +12,10 @@ through the reference net (``value_estimator.make_target_fn``), IS-weighted
 MSE on V(s | piece) with Adam, new priorities |v - target|.
 
 Every draw follows JAX's keys through the port's threefry: the policy
-splits its key into (kexp, kpick); ``jax.random.categorical`` is the argmax
-of logits plus ``jax_gumbel`` noise, and the explore draw a uniform.  A
-top-drop tick evaluates 4 W successor boards per game, a full-space tick
+splits its key into (kexp, kpick); ``jax.random.categorical`` is the
+argmax of logits plus JAX's gumbel noise (``distributions.categorical``),
+and the explore draw a uniform.  The initial weights are JAX's
+(``VNet.init_flax_``).  A top-drop tick evaluates 4 W successor boards per game, a full-space tick
 4 W H.
 """
 from __future__ import annotations
@@ -28,8 +29,8 @@ import torch.nn as nn
 from drl_tetris_tpu_torch import resolve_device
 from drl_tetris_tpu_torch.algos.ppo import (frozen_copy, minibatch_indices,
                                             sync_reference)
+from drl_tetris_tpu_torch.algos.distributions import categorical
 from drl_tetris_tpu_torch.algos.replay import (ReplayConfig, ReplayState,
-                                               jax_gumbel,
                                                replay_gather_windows,
                                                replay_sample,
                                                replay_update_prios)
@@ -42,6 +43,7 @@ from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine.core import EngineConfig
 from drl_tetris_tpu_torch.env.env import TetrisVectorEnv, take_player
 from drl_tetris_tpu_torch.env.observations import field_grid
+from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 from drl_tetris_tpu_torch.models.nets import (VEC_DIM, ModelConfig,
                                               ResidualBlock, apply_visual_pad)
 
@@ -79,12 +81,13 @@ class VNet(nn.Module):
         self.register_buffer("piece_mask", cfg.piece_mask, persistent=False)
         self.to(resolve_device(device))
 
-    @torch.no_grad()
-    def init_flax_(self, generator: torch.Generator) -> "VNet":
-        """Fresh weights with flax's initialisers (their distributions)."""
+    def init_flax_(self, key) -> "VNet":
+        """Fresh weights from the init key ``key``: what the JAX VNet's
+        ``init(key, ...)`` gives (models/flax_init.py)."""
+        init = FlaxInit(self, key)
         for m in self.modules():
             if isinstance(m, ResidualBlock):
-                m.init_flax_(generator)
+                m.init_flax_(init)
         return self
 
     def load_params_(self, params) -> "VNet":
@@ -115,14 +118,6 @@ class VNet(nn.Module):
 # ---------------------------------------------------------------------------
 # Acting: one-ply world-model search over legal placements
 # ---------------------------------------------------------------------------
-
-def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """jax.random.categorical(key, logits, axis=-1) of (N, K) logits: the
-    argmax of logits plus JAX's gumbel draw."""
-    g = jax_gumbel(key.to(logits.device), logits.numel()).reshape(
-        logits.shape)
-    return torch.argmax(g + logits, dim=-1)
-
 
 def _explore_eps(distribution: str, hp: HParams):
     """The explore probability of the epsilon distributions, float32 as

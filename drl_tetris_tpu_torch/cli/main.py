@@ -474,10 +474,9 @@ def _load_agent(path, cfg, device=None, name=None):
     weights<->settings pairing, eval.py:99-104, tools/utils.py:47-52), so
     tournaments can mix flavours (PPONet, QNet, VNet, SherlockNet) and
     model sizes.
-    ``random`` is a net with fresh weights (the JAX package draws them from
-    PRNGKey(0); the port from a torch.Generator seeded with 0)."""
-    import torch
-
+    ``random`` is a net with fresh weights, JAX's ``init(PRNGKey(0),
+    ...)``."""
+    from drl_tetris_tpu_torch.engine import rng
     from drl_tetris_tpu_torch.runtime import checkpoint as ckpt
     from drl_tetris_tpu_torch.runtime.evaluate import EvalAgent
 
@@ -492,7 +491,7 @@ def _load_agent(path, cfg, device=None, name=None):
                       "using CLI presets", file=sys.stderr)
     net = _new_net(cfg, device)
     if path == "random":
-        net.init_flax_(torch.Generator().manual_seed(0))
+        net.init_flax_(rng.prng_key(0))
     else:
         raw = ckpt.restore_raw(path)
         net.load_params_(raw.get("params", raw))
@@ -656,7 +655,7 @@ def cmd_up(args):
 
     kv_proc = launch_server(args.port)
     print(f"[up] tetrikv on :{args.port}", flush=True)
-    procs, pumps = {}, {}
+    procs, pumps, claimed = {}, {}, {}
     seen = {"pushed": threading.Event(), "recovered": threading.Event()}
 
     def passthrough():
@@ -672,9 +671,12 @@ def cmd_up(args):
             [sys.executable, "-m", "drl_tetris_tpu_torch", *role_args],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs[name] = p
+        claimed[name] = threading.Event()
 
         def pump():
             for line in p.stdout:
+                if line.startswith("claimed slot"):
+                    claimed[name].set()
                 if name == "worker0" and "segment pushed" in line:
                     seen["pushed"].set()
                 if name == "worker0b" and "recovered state" in line:
@@ -706,10 +708,15 @@ def cmd_up(args):
         trainer = spawn("trainer", ["trainer", *passthrough(),
                                     "--updates", str(args.updates)])
         for i in range(args.workers):
-            # the chaos victim runs until its SIGTERM
+            # the chaos victim runs until its SIGTERM; it claims its slot
+            # before the others start, so it holds worker-0, the first
+            # slot its replacement finds free
             steps = 0 if args.chaos and i == 0 else args.steps
-            spawn(f"worker{i}", ["worker", *passthrough(),
-                                 "--steps", str(steps)])
+            w = spawn(f"worker{i}", ["worker", *passthrough(),
+                                     "--steps", str(steps)])
+            while i == 0 and not claimed["worker0"].wait(timeout=1.0) \
+                    and w.poll() is None:
+                pass
         if args.chaos:
             time.sleep(args.chaos)
             victim = procs["worker0"]

@@ -105,6 +105,26 @@ def key_uniform(keys: torch.Tensor) -> torch.Tensor:
     return bits_to_uniform(b1 ^ b2)
 
 
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
+    """== jax.random.gumbel(k, shape, float32) (mode 'low') for each key k
+    of a batch (..., 2): (..., *shape), every draw in one threefry pass.
+    The counters are the row-major index into ``shape`` (partitionable
+    threefry); the value is -log(-log(u)), u uniform on [tiny, 1), whose
+    bits are JAX's and whose logs may differ by an ulp from XLA's."""
+    n = 1
+    for d in shape:
+        n *= d
+    c = torch.arange(n, dtype=torch.int64, device=keys.device)
+    b1, b2 = threefry2x32(keys[..., 0, None], keys[..., 1, None],
+                          torch.zeros_like(c), c)
+    u = bits_to_uniform(b1 ^ b2)
+    u = torch.clamp(u * (1.0 - _TINY) + _TINY, min=_TINY)
+    return (-torch.log(-torch.log(u))).reshape(*keys.shape[:-1], *shape)
+
+
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     """== jax.random.permutation(key, n) for one key (2,): rounds of a
     stable sort of arange(n) by fresh 32-bit keys, ceil(3 ln n / ln(2**32

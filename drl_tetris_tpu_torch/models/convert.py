@@ -185,27 +185,35 @@ def _port_trunk(names) -> Tuple[str, Tuple[str, ...]]:
     return trunk, tuple(f"Dense_{i}" for i in range(n_dense))
 
 
-def _body_to_flax(table, items, root, tree) -> None:
-    """Write state_dict ``items`` ((name without prefix, value)) into the
-    flax ``tree`` under the path ``root``."""
-    for name, value in items:
-        a = np.asarray(value.detach().cpu() if torch.is_tensor(value)
-                       else value, dtype=np.float32)
-        module, leaf = name.rsplit(".", 1)
-        path = [*root, *_flax_module(table, module)]
-        if leaf == "bias":
-            path.append("bias")
-        elif leaf == "weight":
-            path.append("scale" if path[-1] == "LayerNorm_0"
-                        else "kernel")
-            if path[-1] == "kernel":
-                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
-        else:
-            raise KeyError(f"unmapped parameter {name}")
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(a)
+def _flax_leaf(table, name: str, root: Tuple[str, ...]
+               ) -> Tuple[str, ...]:
+    """The flax path (modules..., leaf) under ``root`` of a parameter
+    ``name`` (without its prefix) of a body whose modules ``table`` maps."""
+    module, leaf = name.rsplit(".", 1)
+    path = (*root, *_flax_module(table, module))
+    if leaf == "bias":
+        return path + ("bias",)
+    if leaf == "weight":
+        return path + ("scale" if path[-1] == "LayerNorm_0" else "kernel",)
+    raise KeyError(f"unmapped parameter {name}")
+
+
+def flax_paths(names) -> Dict[str, Tuple[str, ...]]:
+    """{parameter name of a PPONet, QNet, VNet or SherlockNet: its flax
+    path (modules..., leaf) under 'params'}."""
+    names = list(names)
+    trunk = [n[len("trunk."):] for n in names if n.startswith("trunk.")]
+    rest = [n for n in names if not n.startswith("trunk.")]
+    if not trunk:                                        # VNet
+        return {n: _flax_leaf(_VNET, n, ()) for n in rest}
+    flax_trunk, modules = _port_trunk(["trunk." + n for n in trunk])
+    table = _module_table(flax_trunk, modules)
+    out = {"trunk." + n: _flax_leaf(table, n, (flax_trunk,)) for n in trunk}
+    if rest:                                             # SherlockNet
+        if flax_trunk != "SventonNet_0":
+            raise KeyError(f"a phi head on a {flax_trunk} trunk")
+        out.update({n: _flax_leaf(_PHI, n, ()) for n in rest})
+    return out
 
 
 def params_to_flax(state_dict) -> Dict[str, Any]:
@@ -213,20 +221,16 @@ def params_to_flax(state_dict) -> Dict[str, Any]:
     as the flax param tree ``{'params': ...}`` of numpy float32 arrays: the
     inverse of ``params_from_flax``."""
     tree: Dict[str, Any] = {}
-    trunk_items = [(n[len("trunk."):], v) for n, v in state_dict.items()
-                   if n.startswith("trunk.")]
-    rest = [(n, v) for n, v in state_dict.items()
-            if not n.startswith("trunk.")]
-    if not trunk_items:                                  # VNet
-        _body_to_flax(_VNET, rest, [], tree)
-        return {"params": tree}
-    trunk, modules = _port_trunk(state_dict if not rest else
-                                 {"trunk." + n: v for n, v in trunk_items})
-    _body_to_flax(_module_table(trunk, modules), trunk_items, [trunk], tree)
-    if rest:                                             # SherlockNet
-        if trunk != "SventonNet_0":
-            raise KeyError(f"a phi head on a {trunk} trunk")
-        _body_to_flax(_PHI, rest, [], tree)
+    for name, path in flax_paths(state_dict).items():
+        value = state_dict[name]
+        a = np.asarray(value.detach().cpu() if torch.is_tensor(value)
+                       else value, dtype=np.float32)
+        if path[-1] == "kernel":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(a)
     return {"params": tree}
 
 

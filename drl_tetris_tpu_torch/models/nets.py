@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from drl_tetris_tpu_torch import resolve_device
+from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 
 ARCHITECTURES = ("silver", "vanilla", "keyboard", "dreamer")
 VEC_DIM = 12          # per-perspective scalar observation (env/observations)
@@ -128,38 +129,12 @@ def conv_shape_vector(vec: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return vec[:, None, None, :].expand(vec.shape[0], h, w, vec.shape[1])
 
 
-def glorot_uniform(shape, generator: torch.Generator) -> torch.Tensor:
-    """flax's glorot_uniform for an OIHW kernel (fans as for flax's HWIO
-    layout): uniform on [-l, l), l = sqrt(6 / (fan_in + fan_out)), drawn on
-    the generator's device."""
-    field = math.prod(shape[2:])
-    limit = math.sqrt(6.0 / (shape[1] * field + shape[0] * field))
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return (2.0 * u - 1.0) * limit
-
-
-def lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
-    """flax's lecun_normal (the default kernel init of nn.Dense and
-    nn.Conv) for an OIHW or (out, in) kernel: a normal truncated at two
-    standard deviations, scaled to variance 1 / fan_in."""
-    fan_in = shape[1] * math.prod(shape[2:])
-    t = torch.empty(shape, device=generator.device)
-    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    # the standard deviation of a unit normal truncated to [-2, 2]
-    return t * (math.sqrt(1.0 / fan_in) / 0.87962566103423978)
-
-
-def _fill(param: torch.Tensor, values: torch.Tensor):
-    param.copy_(values.to(param.device))
-
-
-@torch.no_grad()
-def _init_layer(layer: nn.Module, generator: torch.Generator,
-                kernel=lecun_normal):
-    """A Linear or Conv2d as flax initialises it: ``kernel`` (lecun_normal
-    by default) and a zero bias."""
-    _fill(layer.weight, kernel(layer.weight.shape, generator))
-    layer.bias.zero_()
+def _init_layer(layer: nn.Module, init: FlaxInit, kernel: str =
+                "lecun_normal"):
+    """A Linear or Conv2d as flax initialises it: ``kernel``
+    (lecun_normal, flax's default, or glorot_uniform) and a zero bias."""
+    getattr(init, kernel)(layer.weight)
+    init.zeros(layer.bias)
 
 
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -261,24 +236,20 @@ class ResidualBlock(nn.Module):
             self.acts.append(act)
         self.out_channels = c
 
-    @torch.no_grad()
-    def init_flax_(self, generator: torch.Generator):
+    def init_flax_(self, init: FlaxInit):
         """flax's initialisers (drl_tetris_tpu/models/nets.py:149-166):
         glorot_uniform kernels, normal(0.01) on the last two of an output
         block, zero biases, LayerNorm weight 1 and bias 0."""
         n = len(self.convs)
         for i, conv in enumerate(self.convs):
             if self.output_layer and i >= n - 2:
-                _fill(conv.weight, 0.01 * torch.randn(
-                    conv.weight.shape, generator=generator,
-                    device=generator.device))
+                init.normal(conv.weight, 0.01)
             else:
-                _fill(conv.weight, glorot_uniform(conv.weight.shape,
-                                                  generator))
-            conv.bias.zero_()
+                init.glorot_uniform(conv.weight)
+            init.zeros(conv.bias)
         if self.norm is not None:
-            self.norm.weight.fill_(1.0)
-            self.norm.bias.zero_()
+            init.ones(self.norm.weight)
+            init.zeros(self.norm.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -314,14 +285,11 @@ class KeyboardConv(nn.Module):
         self.n_rot, self.n_pieces = n_rot, n_pieces
         self.conv = nn.Conv2d(in_channels, n_rot * n_pieces, (height, 3))
 
-    @torch.no_grad()
-    def init_flax_(self, generator: torch.Generator):
+    def init_flax_(self, init: FlaxInit):
         """A zero kernel and a normal(1e-5) bias, as flax's KeyboardConv:
         the policy starts uniform."""
-        self.conv.weight.zero_()
-        _fill(self.conv.bias, 1e-5 * torch.randn(
-            self.conv.bias.shape, generator=generator,
-            device=generator.device))
+        init.zeros(self.conv.weight)
+        init.normal(self.conv.bias, 1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)                            # (B, R*P, 1, W)
@@ -386,13 +354,12 @@ class SventonNet(nn.Module):
         # the forward copies nothing from the host
         self.register_buffer("piece_mask", cfg.piece_mask, persistent=False)
 
-    @torch.no_grad()
-    def init_flax_(self, generator: torch.Generator):
+    def init_flax_(self, init: FlaxInit):
         for m in self.modules():
             if isinstance(m, (ResidualBlock, KeyboardConv)):
-                m.init_flax_(generator)
+                m.init_flax_(init)
         if not self.kbd_head:
-            _init_layer(self.a_dense, generator, glorot_uniform)
+            _init_layer(self.a_dense, init, "glorot_uniform")
 
     def forward(self, vec, vis):
         c = self.cfg
@@ -460,11 +427,10 @@ class _DenseEncoders(nn.Module):
                                                              CONV_FILTERS))])
              for _ in range(2)])
 
-    @torch.no_grad()
-    def init_flax_(self, generator: torch.Generator):
+    def init_flax_(self, init: FlaxInit):
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
-                _init_layer(m, generator)
+                _init_layer(m, init)
 
 
 class ConvThenDense(_DenseEncoders):
@@ -491,11 +457,10 @@ class ConvThenDense(_DenseEncoders):
             n_flat, cfg.n_rotations * N_TRANSLATIONS * cfg.n_pieces)
         self.acting = ("vec_enc", "vis_enc", "a_dense")
 
-    @torch.no_grad()
-    def init_flax_(self, generator: torch.Generator):
+    def init_flax_(self, init: FlaxInit):
         """The A head is glorot-uniform."""
-        super().init_flax_(generator)
-        _init_layer(self.a_dense, generator, glorot_uniform)
+        super().init_flax_(init)
+        _init_layer(self.a_dense, init, "glorot_uniform")
 
     def forward(self, vec, vis):
         c = self.cfg
@@ -556,10 +521,9 @@ class ConvKeyboard(_DenseEncoders):
                 self.value_pieces = nn.Linear(VALUE_HIDDEN, 7)
         self.acting = ("vec_enc", "vis_enc", "kbd")
 
-    @torch.no_grad()
-    def init_flax_(self, generator: torch.Generator):
-        super().init_flax_(generator)
-        self.kbd.init_flax_(generator)
+    def init_flax_(self, init: FlaxInit):
+        super().init_flax_(init)
+        self.kbd.init_flax_(init)
 
     def forward(self, vec, vis):
         hidden = [torch.tanh(l1(F.elu(l0(v.float()))))
@@ -621,6 +585,13 @@ class PPONet(nn.Module):
         self.register_buffer("piece_mask", cfg.piece_mask, persistent=False)
         self.to(resolve_device(device))
 
+    @property
+    def action_columns(self) -> int:
+        """The action plane's columns: the board's width, or
+        N_TRANSLATIONS for 'vanilla'."""
+        return N_TRANSLATIONS if self.cfg.architecture == "vanilla" \
+            else self.board[1]
+
     def worker_view(self) -> "PPONet":
         """The worker-side net (``full_network=False``) holding this net's
         acting modules: the same parameter tensors, no value head.  The
@@ -632,11 +603,11 @@ class PPONet(nn.Module):
             setattr(view.trunk, name, getattr(self.trunk, name))
         return view
 
-    def init_flax_(self, generator: torch.Generator) -> "PPONet":
-        """Fresh weights with flax's initialisers, drawn from
-        ``generator``: the distributions of the JAX package's
-        ``net.init``, not its values."""
-        self.trunk.init_flax_(generator)
+    def init_flax_(self, key) -> "PPONet":
+        """Fresh weights from the init key ``key`` ((2,) threefry words):
+        exactly what the JAX package's ``net.init(key, ...)`` gives
+        (models/flax_init.py)."""
+        self.trunk.init_flax_(FlaxInit(self, key))
         return self
 
     def load_params_(self, params) -> "PPONet":

@@ -75,14 +75,13 @@ def make_mesh(device, init_method: str, world_size: int = 1,
 class DistributedTrainer:
     """Sharded self-play training: each ``train_iteration`` is a rollout
     segment of this rank's games and a data-parallel PPO update with the
-    gradients averaged over ``group``.  The initial weights are flax's
-    initialisers from a ``torch.Generator`` seeded with ``seed`` on every
-    rank (so the replicas start equal); the games reset from
-    ``fold_in(ke, rank)`` with ``_, ke = split(PRNGKey(seed))``; each
-    iteration takes ``key, k = split(key)`` from ``PRNGKey(seed + 1)``
-    (the JAX CLI's chain), then ``kroll, kupd = split(fold_in(k,
-    rank))``.  The pi noise comes from a device generator of the rank or
-    is given (``gumbel``)."""
+    gradients averaged over ``group``.  Every draw is JAX's: with ``kp, ke
+    = split(PRNGKey(seed))`` the initial weights come from kp on every
+    rank (so the replicas start equal) and the games reset from
+    ``fold_in(ke, rank)``; each iteration takes ``key, k = split(key)``
+    from ``PRNGKey(seed + 1)`` (the JAX CLI's chain), then ``kroll, kupd
+    = split(fold_in(k, rank))``, and kroll draws the rank's pi noise (or
+    it is given, ``gumbel``)."""
 
     def __init__(self, cfg: DistributedConfig, group=None, device=None):
         self.cfg = cfg
@@ -96,18 +95,16 @@ class DistributedTrainer:
         self.n_local = cfg.n_envs // self.world
         e = cfg.env.engine
         self.env = TetrisVectorEnv(cfg.env, self.n_local, device=self.device)
+        kp, ke = rng.split(rng.prng_key(cfg.seed, self.device))
         self.net = PPONet(cfg.model, board=(e.height, e.width),
-                          full_network=True, device=self.device)
-        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+                          full_network=True, device=self.device
+                          ).init_flax_(kp)
         self.rollout = make_rollout_fn(self.env, self.net, cfg.horizon)
         init_opt, self.update = make_ppo_update(e, self.net, cfg.ppo,
                                                 group=self.group)
         self.state = init_opt(self.net)
-        _kp, ke = rng.split(rng.prng_key(cfg.seed, self.device))
         self.env_state = self.env.reset(rng.fold_in(ke, self.rank))
         self.key = rng.prng_key(cfg.seed + 1, self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            (cfg.seed << 16) + self.rank)
         self.total_steps = 0
 
     def state_dict(self) -> dict:
@@ -123,7 +120,7 @@ class DistributedTrainer:
         self.key, k = rng.split(self.key)
         kroll, kupd = rng.split(rng.fold_in(k, self.rank))
         self.env_state, seg, v_last = self.rollout(
-            self.env_state, self.generator, gumbel, kroll)
+            self.env_state, kroll, gumbel)
         batch, _ = segment_to_batch(self.cfg.ppo, seg, v_last)
         self.state, stats = self.update(self.state, batch, kupd)
         names = list(stats)

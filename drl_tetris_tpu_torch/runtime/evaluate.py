@@ -11,11 +11,11 @@ so ``argmax`` agents play the same games as there: the games reset from
 acting player's action is taken; the winner is read once after each
 chunk of 8 ticks and recorded only for newly finished games; each
 pairing's seed is ``seed + 97 * p0 + p1``.  Each tick's env step is one
-launch of the engine kernel's one-tick entry on the card.  ``pi`` and
-pareto agents sample with a ``torch.Generator`` seeded with ``seed + 1``,
-so their games match JAX's only in distribution; epsilon-greedy agents
-follow JAX's key chain (``PRNGKey(seed + 1)``, one split per chunk of 8
-ticks, one per tick, one per seat), so their games are JAX's.
+launch of the engine kernel's one-tick entry on the card.  Every agent
+that draws follows JAX's key chain (``PRNGKey(seed + 1)``, one split per
+chunk of 8 ticks, one per tick, one per seat), so its games are JAX's:
+epsilon-greedy agents split their seat's key, ``pi`` and pareto agents
+sample its categorical, whose noise is drawn for the whole chunk at once.
 
 Agents of every kind meet: ``macro`` (PPONet and QNet, the (r, t) macro),
 ``world_model`` and ``world_model_full`` (SIXten's VNet, one-ply search
@@ -45,8 +45,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from drl_tetris_tpu_torch.algos.rollout import (EPSILON_DISTRIBUTIONS,
-                                                make_policy_fn,
+from drl_tetris_tpu_torch.algos.rollout import (SAMPLED_DISTRIBUTIONS,
+                                                action_size, make_policy_fn,
                                                 policy_inputs)
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine import step as S
@@ -76,8 +76,10 @@ class EvalAgent:
 
 
 def _agent_policy(env, agent: EvalAgent):
-    """(policy(st, generator, key) -> (r, t, y), its make phase, whether
-    it reads the key)."""
+    """(policy(st, key, gumbel) -> (r, t, y), its make phase, whether it
+    reads the key, the size of its categorical's noise per game or None).
+    ``gumbel`` is the noise of a ``pi`` or pareto agent's categorical
+    from ``key``, drawn ahead."""
     if agent.kind not in KINDS:
         raise ValueError(f"{agent.name}: unknown kind {agent.kind!r}")
     full = agent.kind.endswith("_full")
@@ -86,10 +88,12 @@ def _agent_policy(env, agent: EvalAgent):
         pol = make_policy_fn(env, agent.net, agent.distribution,
                              epsilon=agent.epsilon)
 
-        def act(st, generator, key):
-            _, _, r, t, *_ = pol(st, generator, key=key)
+        def act(st, key, gumbel):
+            _, _, r, t, *_ = pol(st, gumbel, key)
             return r, t, torch.zeros_like(r)
-        return act, S.MACRO, agent.distribution in EPSILON_DISTRIBUTIONS
+        sampled = agent.distribution in SAMPLED_DISTRIBUTIONS
+        return (act, S.MACRO, agent.distribution != "argmax",
+                action_size(agent.net) if sampled else None)
     if agent.kind.startswith("world_model"):
         from drl_tetris_tpu_torch.algos.sixten import make_sixten_policy
         d = {"pi": "boltzmann"}.get(agent.distribution, agent.distribution)
@@ -99,13 +103,13 @@ def _agent_policy(env, agent: EvalAgent):
         pol = make_sherlock_policy(env, agent.net, agent.distribution,
                                    agent.epsilon, space)
 
-    def act(st, generator, key):
+    def act(st, key, gumbel):
         out = pol(st, key)
         if full:
             return out[2], out[3], out[4]
         return out[2], out[3], torch.zeros_like(out[2])
-    return act, (S.POSE if full else S.PLACE), \
-        agent.distribution != "argmax"
+    return (act, (S.POSE if full else S.PLACE),
+            agent.distribution != "argmax", None)
 
 
 def make_probe(env, agent: EvalAgent):
@@ -168,13 +172,13 @@ def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
         render = True
     dev = next(agents[0].net.parameters()).device
     env = TetrisVectorEnv(env_cfg, n_games, device=dev)
-    (act0, kind0, keyed0), (act1, kind1, keyed1) = [
+    (act0, kind0, keyed0, noise0), (act1, kind1, keyed1, noise1) = [
         _agent_policy(env, a) for a in agents]
     st = env.reset(seed)
-    generator = torch.Generator(device=dev).manual_seed(seed + 1)
     keyed = keyed0 or keyed1
     key = rng.prng_key(seed + 1, dev)
     seat_keys = (None, None)
+    gumbel = (None, None)
     finished = np.zeros(n_games, bool)
     winner = np.full(n_games, -1)
     # a rendered match reads the winner every tick (one key a tick);
@@ -188,13 +192,18 @@ def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
             done_any = torch.zeros(n_games, dtype=torch.bool, device=dev)
             if keyed:
                 key, k = rng.split(key)
-                tick_keys = [k] if chunk == 1 else rng.split(k, CHUNK)
+                keys = rng.split(k[None] if chunk == 1 else rng.split(
+                    k, CHUNK))                          # (chunk, seat, 2)
+                noise = [None if m is None else
+                         rng.gumbel(keys[:, seat], (n_games, m))
+                         for seat, m in enumerate((noise0, noise1))]
             for i in range(chunk):
                 if keyed:
-                    seat_keys = rng.split(tick_keys[i])
+                    seat_keys = keys[i]
+                    gumbel = [None if g is None else g[i] for g in noise]
                 (r0, t0, y0), (r1, t1, y1) = (
-                    act0(st, generator, seat_keys[0]),
-                    act1(st, generator, seat_keys[1]))
+                    act0(st, seat_keys[0], gumbel[0]),
+                    act1(st, seat_keys[1], gumbel[1]))
                 mine = st.current_player == 0
                 r, t = torch.where(mine, r0, r1), torch.where(mine, t0, t1)
                 if kind0 == kind1 == S.MACRO:

@@ -14,6 +14,7 @@ from typing import Deque, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.env.env import EnvConfig
 from drl_tetris_tpu_torch.runtime.evaluate import EvalAgent, round_robin
 from drl_tetris_tpu_torch.utils.elo import LeagueHistory
@@ -23,12 +24,11 @@ def random_anchor(net: torch.nn.Module, seed: int = 0xE10
                   ) -> torch.nn.Module:
     """The league's random anchor for a run of ``net``: a full net of its
     class (PPONet, QNet, VNet or SherlockNet), model and board, on its
-    device, with fresh
-    flax-distributed weights from ``torch.Generator().manual_seed(seed)``
-    (the JAX package inits its anchor from ``PRNGKey(0xE10)``)."""
+    device, with the weights JAX's anchor gets from ``init(PRNGKey(seed),
+    ...)``."""
     dev = next(net.parameters()).device
     rnd = type(net)(net.cfg, net.board, full_network=True, device=dev)
-    return rnd.init_flax_(torch.Generator().manual_seed(seed))
+    return rnd.init_flax_(rng.prng_key(seed))
 
 
 class TrainingLeague:

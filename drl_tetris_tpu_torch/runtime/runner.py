@@ -17,16 +17,14 @@ any agent through its worker and trainer scripts: ``ppo``, ``dual``
 ``dqn`` and ``sixten`` (the worker ships raw segments, the trainer owns
 the prioritized replay) and ``sherlock``.
 
-Keys follow the JAX package's chain through the port's threefry: a
-worker draws ``PRNGKey(seed) -> split(2 + policies)`` (key, kenv, one
-per policy) and ``key, kroll = split(key)`` per segment, so its epsilon
-and world-model draws are JAX's; its ``pi`` and pareto noise comes from a
-``torch.Generator`` seeded with ``seed`` (or is given, ``gumbel``), as in
-the standalone trainers.  A trainer core draws ``PRNGKey(seed + 7) ->
-split`` and one ``split`` per update, so its minibatches and replay
-samples are JAX's.  Initial weights are flax's initialisers from a
-``torch.Generator`` seeded with ``seed`` (workers) or ``seed + 7``
-(trainer cores).
+Every draw follows the JAX package's key chain through the port's
+threefry: a worker draws ``PRNGKey(seed) -> split(2 + policies)`` (key,
+kenv, then each policy's init key) and ``key, kroll = split(key)`` per
+segment, so its initial weights and every sampling draw are JAX's (the
+``pi`` or pareto noise may be given instead, ``gumbel``).  A trainer core
+draws ``PRNGKey(seed + 7) -> split(1 + policies)`` (key, then each
+policy's init key) and one ``split`` per update, so its weights,
+minibatches and replay samples are JAX's.
 
 Everything that crosses the store is numpy arrays and plain Python
 values (training_state.py): packets, published weights (a state dict, or
@@ -111,7 +109,7 @@ def make_worker_parts(cfg: StandaloneConfig, env: TetrisVectorEnv,
     """(nets, rollout, process) of a flavour's worker on ``env``'s device.
 
     ``nets`` holds one net per policy (two for 'dual'), their weights
-    uninitialised; ``rollout(env_state, key, hp, generator, gumbel) ->
+    uninitialised; ``rollout(env_state, key, hp, gumbel) ->
     (env_state', segment, v_last)``; ``process(segment, v_last,
     env_state)`` is the packet's payload as numpy: on-policy flavours
     ship processed batches and their GAE stats, replay flavours raw
@@ -164,7 +162,7 @@ def make_worker_parts(cfg: StandaloneConfig, env: TetrisVectorEnv,
             env, net, cfg.horizon, distribution=explore,
             action_space=settings.get("sixten_action_space", "top_drop"))
 
-        def rollout(env_state, key, hp, generator, gumbel):
+        def rollout(env_state, key, hp, gumbel):
             return roll(env_state, key, hp)
         return [net], rollout, _ship_segment
     if flavour == "sherlock":
@@ -180,17 +178,17 @@ def make_worker_parts(cfg: StandaloneConfig, env: TetrisVectorEnv,
             return {"batch": to_host(sherlock_segment_to_batch(scfg, seg,
                                                                v)[0])}
 
-        def rollout(env_state, key, hp, generator, gumbel):
+        def rollout(env_state, key, hp, gumbel):
             return roll(env_state, key)
         return [net], rollout, ship
     raise ValueError(f"unknown flavour {flavour!r}")
 
 
 def _sampling(roll):
-    """The runner's form of a rollout that samples with a generator or
-    given noise (``make_rollout_fn``, ``make_dual_rollout_fn``)."""
-    def rollout(env_state, key, hp, generator, gumbel):
-        return roll(env_state, generator, gumbel, key, hp)
+    """The runner's form of a rollout that may take given noise
+    (``make_rollout_fn``, ``make_dual_rollout_fn``)."""
+    def rollout(env_state, key, hp, gumbel):
+        return roll(env_state, key, gumbel, hp)
     return rollout
 
 
@@ -229,17 +227,15 @@ def load_learner_state(st, sd: dict):
 
 
 class _Core:
-    """What the trainer cores share: the device, JAX's key chain
-    ``PRNGKey(seed + 7) -> split(1 + policies)`` and a
-    ``torch.Generator`` seeded with ``seed + 7`` for the initial
-    weights."""
+    """What the trainer cores share: the device and JAX's key chain
+    ``PRNGKey(seed + 7) -> split(1 + policies)``: the key, then each
+    policy's init key (``init_keys``)."""
 
     def _init_core(self, cfg: StandaloneConfig, device, n_policies=1):
         self.cfg = cfg
         self.device = device
-        self.key = rng.split(rng.prng_key(cfg.seed + 7, device),
-                             1 + n_policies)[0]
-        self.init_gen = torch.Generator().manual_seed(cfg.seed + 7)
+        self.key, *self.init_keys = rng.split(
+            rng.prng_key(cfg.seed + 7, device), 1 + n_policies)
 
     def _next_key(self):
         self.key, kupd = rng.split(self.key)
@@ -278,7 +274,7 @@ class _OnPolicyCore(_Core):
             init_opt, self.update = make_ppo_update(cfg.env.engine, self.net,
                                                     cfg.ppo)
             self.Batch = Batch
-        self.net.init_flax_(self.init_gen)
+        self.net.init_flax_(self.init_keys[0])
         self.state = init_opt(self.net)
         self.min_samples = min_samples
         self.pending = []
@@ -327,7 +323,7 @@ class _ReplayCore(_Core):
                 cfg.env.engine, self.net, ucfg, self.replay_cfg)
         self.n_needed = ucfg.n_samples_each_update
         self.alpha, self.beta = ucfg.alpha, ucfg.beta
-        self.net.init_flax_(self.init_gen)
+        self.net.init_flax_(self.init_keys[0])
         self.state = init_opt(self.net)
         self.replay = replay_init(self.replay_cfg, device)
         self.t = 0
@@ -354,15 +350,14 @@ class _DualCore(_Core):
     learner per policy, batches accumulated per policy, and the win-rate
     gate: a policy that wins more than 0.5 + tolerance waits until the
     other catches up (sventon_agent_dqn_trainer.py:16-18,
-    presets.py:179-180).  Policy 0's weights are drawn first, then policy
-    1's, from one generator."""
+    presets.py:179-180).  Each policy's weights come from its init key."""
 
     def __init__(self, cfg, fw, min_samples, device):
         from drl_tetris_tpu_torch.algos.dual import WinRateTracker
         self._init_core(cfg, device, n_policies=2)
         self.nets = [PPONet(cfg.model, board=_board(cfg), full_network=True,
-                            device=device).init_flax_(self.init_gen)
-                     for _ in range(2)]
+                            device=device).init_flax_(k)
+                     for k in self.init_keys]
         init_opt, self.update = make_ppo_update(
             cfg.env.engine, self.nets[0],
             dataclasses.replace(cfg.ppo, single_policy=False))
@@ -528,9 +523,6 @@ class WorkerRunner(Runner):
         self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
         self.nets, self.rollout, self._process = make_worker_parts(
             cfg, self.env, flavour, fw)
-        init = torch.Generator().manual_seed(cfg.seed)
-        for net in self.nets:
-            net.init_flax_(init)
         # sampling schedules, evaluated per segment against the shared
         # workers' clock (sventon_agent.py:87-89)
         self._sched_eps = getattr(fw, "epsilon", 0.05) if fw else 0.05
@@ -541,12 +533,11 @@ class WorkerRunner(Runner):
         self.avg_traj_len = 12.0          # sherlock_agent.py:39 init
         self._ep_len = torch.zeros(cfg.n_envs, dtype=torch.int32,
                                    device=self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
-        keys = rng.split(rng.prng_key(cfg.seed, self.device),
-                         2 + len(self.nets))
-        self.key = keys[0]
-        self.env_state = self.env.reset(keys[1])
+        self.key, kenv, *kinit = rng.split(
+            rng.prng_key(cfg.seed, self.device), 2 + len(self.nets))
+        for net, k in zip(self.nets, kinit):
+            net.init_flax_(k)
+        self.env_state = self.env.reset(kenv)
         self.weights_index = 0
 
     def hparams(self, clock: int) -> HParams:
@@ -560,7 +551,6 @@ class WorkerRunner(Runner):
                 "params": [to_host(net.state_dict()) for net in self.nets],
                 "weights_index": int(self.weights_index),
                 "key": to_host(self.key),
-                "generator": self.generator.get_state().numpy(),
                 "avg_traj_len": float(self.avg_traj_len),
                 "ep_len": to_host(self._ep_len)}
 
@@ -574,7 +564,6 @@ class WorkerRunner(Runner):
             net.load_params_(params)
         self.weights_index = int(state["weights_index"])
         self.key = torch.from_numpy(state["key"]).to(dev)
-        self.generator.set_state(torch.from_numpy(state["generator"]))
         self.avg_traj_len = float(state["avg_traj_len"])
         self._ep_len = torch.from_numpy(state["ep_len"]).to(dev)
 
@@ -610,7 +599,7 @@ class WorkerRunner(Runner):
         self.key, kroll = rng.split(self.key)
         hp = self.hparams(clock)
         self.env_state, seg, v_last = self.rollout(
-            self.env_state, kroll, hp, self.generator, gumbel)
+            self.env_state, kroll, hp, gumbel)
         if self._dist == "adaptive_epsilon":
             self._ep_len, self.avg_traj_len = _traj_len_ema(
                 seg.done, self._ep_len, self.avg_traj_len, self._tau)

@@ -13,13 +13,13 @@ come back to the host in one transfer at its end.
 
 The key chain is the JAX package's, through the port's threefry
 (``engine/rng.py``): ``PRNGKey(seed) -> split 3`` (key, kinit, kenv), then
-per iteration ``key, kstep = split(key)`` and ``kroll, kupd = split(kstep)``;
-``kupd`` shuffles the minibatches exactly as JAX does.  Two streams differ
-from JAX: the initial weights are drawn with flax's initialisers from a
-``torch.Generator`` seeded with ``seed`` (kinit is unused), and the
-rollout's sampling noise comes from a ``torch.Generator`` on the device
-seeded with ``seed`` (kroll is unused); ``train_iteration(gumbel=...)``
-takes given noise instead, so a test can replay JAX's draws.
+per iteration ``key, kstep = split(key)`` and ``kroll, kupd = split(kstep)``.
+Every stream is JAX's, so a seed gives the JAX trainer's run: ``kinit``
+draws the initial weights as flax's ``net.init`` does
+(models/flax_init.py), ``kroll`` the rollout's sampling noise (one
+categorical per tick, drawn for all ticks at once), and ``kupd`` shuffles
+the minibatches.  ``train_iteration(gumbel=...)`` takes given noise
+instead.
 
 ``state_dict()``/``load_state_dict()`` carry the whole trainer state (the
 net, Adam's moments, steps and lr, the compressors, ``update_count``,
@@ -42,8 +42,8 @@ on-device prioritized replay, and updates once the replay holds
 ``n_samples_each_update`` rows: the sample follows JAX's key, the targets
 go through the reference net, then IS-weighted Q steps with Adam.  Its
 rollout key chain is JAX's (``key, kroll, kupd = split(key, 3)``): the
-epsilon draws follow ``kroll`` exactly, pareto's gumbel noise comes from
-the generator or is given.  The replay is not saved: a resumed run starts
+epsilon draws and pareto's gumbel noise follow ``kroll`` (or the noise is
+given).  The replay is not saved: a resumed run starts
 it empty, as the JAX CLI's does.
 """
 from __future__ import annotations
@@ -285,17 +285,17 @@ class StandaloneTrainer:
         self.device = resolve_device(device)
         e = cfg.env.engine
         self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        key = rng.prng_key(cfg.seed, self.device)
+        self.key, kinit, kenv = rng.split(key, 3)
         self.net = PPONet(cfg.model, board=(e.height, e.width),
                           full_network=True, device=self.device)
-        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+        self.net.init_flax_(kinit)
         # workers run the value-stream-free net when the trainer computes
         # targets (ppo_nets.py:28): the value tower is skipped on every
         # rollout tick; the view shares the net's trunk tensors
         self.worker_net = self.net if wca else self.net.worker_view()
         self.rollout = make_rollout_fn(self.env, self.worker_net, cfg.horizon)
         self.init_opt, self.update = make_ppo_update(e, self.net, cfg.ppo)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
 
         # league-pool opponents: frozen nets and their learner win-rate
         # EMAs, in lockstep (deque eviction keeps them aligned)
@@ -307,8 +307,6 @@ class StandaloneTrainer:
             self.pool_rollout = make_pool_rollout_fn(
                 self.env, self.worker_net, cfg.horizon)
 
-        key = rng.prng_key(cfg.seed, self.device)
-        self.key, _kinit, kenv = rng.split(key, 3)
         self.state = self.init_opt(self.net)
         self.env_state = self.env.reset(kenv)
         self.total_steps = 0
@@ -383,18 +381,18 @@ class StandaloneTrainer:
         self.key, kstep = rng.split(self.key)
         use_pool = (len(self._pool) > 0
                     and self._host_rng.rand() < cfg.pool_prob)
-        _kroll, kupd = rng.split(kstep)
+        kroll, kupd = rng.split(kstep)
         clock = _PhaseClock(self.device)
         clock.mark("start")
         if use_pool:
             idx = self._pick_opponent()
             learner_first = self._iter % 2 == 0
             self.env_state, seg, v_last = self.pool_rollout(
-                self._pool[idx], self.env_state, self.generator, gumbel,
+                self._pool[idx], self.env_state, kroll, gumbel,
                 learner_first=learner_first)
         else:
             self.env_state, seg, v_last = self.rollout(
-                self.env_state, self.generator, gumbel)
+                self.env_state, kroll, gumbel)
         clock.mark("rollout")
         if cfg.reward_shaper is not None:
             seg = seg._replace(reward=cfg.reward_shaper(seg.reward, seg.done))
@@ -540,27 +538,26 @@ class StandaloneDQNTrainer(_RefNetLearner, _DQNActing):
     """SVENton-DQN in one process: epsilon-greedy (or pareto) rollouts into
     the on-device prioritized replay, k-step lambda targets through the
     reference net, IS-weighted Q updates (sventon_agent_dqn_trainer.py).
-    Initial weights: flax's initialisers from a ``torch.Generator`` seeded
-    with ``seed``, as the PPO trainer's."""
+    The key chain is JAX's (``key, kinit, kenv = split(PRNGKey(seed), 3)``,
+    then ``key, kroll, kupd = split(key, 3)`` per iteration) and every
+    draw follows it, the initial weights included."""
 
     def __init__(self, cfg: StandaloneDQNConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         e = cfg.env.engine
         self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        key = rng.prng_key(cfg.seed, self.device)
+        self.key, kinit, kenv = rng.split(key, 3)
         self.net = QNet(cfg.model, board=(e.height, e.width),
                         full_network=True, device=self.device)
-        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+        self.net.init_flax_(kinit)
         self.rollout = make_rollout_fn(
             self.env, self.net, cfg.horizon,
             distribution=cfg.train_distribution,
             epsilon=param_eval(cfg.epsilon))
         self.init_opt, self.update = make_dqn_update(e, self.net, cfg.dqn,
                                                      cfg.replay)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
-        key = rng.prng_key(cfg.seed, self.device)
-        self.key, _kinit, kenv = rng.split(key, 3)
         self.state = self.init_opt(self.net)
         self.replay = replay_init(cfg.replay, self.device)
         self.env_state = self.env.reset(kenv)
@@ -582,8 +579,7 @@ class StandaloneDQNTrainer(_RefNetLearner, _DQNActing):
         clock = _PhaseClock(self.device)
         clock.mark("start")
         self.env_state, seg, _ = self.rollout(
-            self.env_state, self.generator, gumbel, key=kroll,
-            hp=self._hparams())
+            self.env_state, kroll, gumbel, hp=self._hparams())
         clock.mark("rollout")
         self._track_traj_len(seg.done)
         replay_add_segment(cfg.replay, self.replay, seg, cfg.horizon)
@@ -613,19 +609,11 @@ class DualPolicyConfig:
     winrate_tolerance: float = 0.1  # presets.py:180
 
 
-def _dual_keys(seed: int, device):
-    """JAX's key chain of the dual trainers: ``PRNGKey(seed) -> split 4``
-    (key, k0, k1, kenv); k0 and k1 drew flax's initial weights there."""
-    key, _k0, _k1, kenv = rng.split(rng.prng_key(seed, device), 4)
-    return key, kenv
-
-
 class _DualTrainer:
-    """What both dual trainers share: the games, two nets of ``net_cls``
-    with flax's initialisers for policy 0 then policy 1 from one
-    ``torch.Generator`` seeded with ``seed``, the win-rate gate, the
-    device generator, JAX's key chain, and policy 0 as ``state`` and
-    ``net``."""
+    """What both dual trainers share: the games, JAX's key chain
+    (``PRNGKey(seed) -> split 4``: key, k0, k1, kenv), two nets of
+    ``net_cls`` initialised from k0 and k1 as JAX's are, the win-rate gate,
+    and policy 0 as ``state`` and ``net``."""
 
     def _init_dual(self, cfg, device, net_cls):
         if cfg.horizon % 2:
@@ -634,14 +622,12 @@ class _DualTrainer:
         self.device = resolve_device(device)
         e = cfg.env.engine
         self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
-        init = torch.Generator().manual_seed(cfg.seed)
+        self.key, k0, k1, kenv = rng.split(rng.prng_key(cfg.seed,
+                                                        self.device), 4)
         self.nets = [net_cls(cfg.model, board=(e.height, e.width),
-                             device=self.device).init_flax_(init)
-                     for _ in range(2)]
+                             device=self.device).init_flax_(k)
+                     for k in (k0, k1)]
         self.winrate = WinRateTracker(cfg.winrate_lr, cfg.winrate_tolerance)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
-        self.key, kenv = _dual_keys(cfg.seed, self.device)
         self.env_state = self.env.reset(kenv)
         self.total_steps = 0
         self.stats = {}
@@ -670,9 +656,9 @@ class DualPolicyTrainer(_DualTrainer):
     Each iteration: one dual rollout (both nets act, one one-tick launch
     per tick), the merge and split into one batch per policy with
     unsigned-gamma GAE, and a PPO update of each policy that the win-rate
-    gate lets train.  Initial weights: flax's initialisers for policy 0
-    then policy 1 from one ``torch.Generator`` seeded with ``seed``; the
-    pi noise from a device generator or given (``gumbel``).
+    gate lets train.  Every draw is JAX's: the initial weights from k0
+    and k1, each tick's pi noise from (k0, k1) = split of its key
+    (or given, ``gumbel``).
 
     ``state``, ``net`` and ``state_dict()`` are policy 0 in the PPO
     trainer's form, which the CLI saves and the league reads, as the JAX
@@ -704,11 +690,11 @@ class DualPolicyTrainer(_DualTrainer):
         ``winrate/policy_0``); ``phase_ms`` holds the rollout, split (merge
         and GAE) and per-policy update times."""
         cfg = self.cfg
-        self.key, _kroll, ku0, ku1 = rng.split(self.key, 4)
+        self.key, kroll, ku0, ku1 = rng.split(self.key, 4)
         clock = _PhaseClock(self.device)
         clock.mark("start")
         self.env_state, seg, v_last = self.rollout(
-            self.env_state, self.generator, gumbel)
+            self.env_state, kroll, gumbel)
         clock.mark("rollout")
         self.winrate.update(self.env.get_winner(self.env_state))
         b0, b1, _ = split_dual_segment(cfg.ppo, seg, v_last)
@@ -745,8 +731,8 @@ class DualPolicyDQNTrainer(_DQNActing, _DualTrainer):
     on-device prioritized replay each (``horizon / 2`` rows per game and
     iteration), the estimator at unsigned gamma
     (``single_policy=False``) and the win-rate gate
-    (sventon_agent_dqn_trainer.py:16-18).  The epsilon draws follow JAX's
-    keys; pareto noise comes from a device generator or is given.
+    (sventon_agent_dqn_trainer.py:16-18).  Every draw follows JAX's keys
+    (the pareto noise may be given instead).
     ``state``, ``net`` and ``state_dict()`` are policy 0 in the DQN
     trainer's form; the replays are not saved."""
 
@@ -784,8 +770,7 @@ class DualPolicyDQNTrainer(_DQNActing, _DualTrainer):
         clock = _PhaseClock(self.device)
         clock.mark("start")
         self.env_state, seg, _ = self.rollout(
-            self.env_state, self.generator, gumbel, key=kroll,
-            hp=self._hparams())
+            self.env_state, kroll, gumbel, hp=self._hparams())
         clock.mark("rollout")
         self.winrate.update(self.env.get_winner(self.env_state))
         self._track_traj_len(seg.done)
@@ -834,9 +819,8 @@ class StandaloneSIXtenTrainer(_RefNetLearner, _DQNActing):
     the successor boards of every legal placement) into the prioritized
     replay, k-step lambda V-targets through the reference net.  The key
     chain is JAX's (``key, kroll, kupd = split(key, 3)`` per iteration),
-    and every draw of the rollout and the replay sample follows it; the
-    initial weights are flax's initialisers drawn from a
-    ``torch.Generator`` seeded with ``seed``.  ``phase_ms`` holds the
+    and every draw follows it: the initial weights (kinit), the rollout
+    and the replay sample.  ``phase_ms`` holds the
     iteration's masks, forward, tick, replay and update times."""
 
     def __init__(self, cfg: StandaloneSIXtenConfig, sixten_cfg=None,
@@ -849,17 +833,16 @@ class StandaloneSIXtenTrainer(_RefNetLearner, _DQNActing):
         self.device = resolve_device(device)
         e = cfg.env.engine
         self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        key = rng.prng_key(cfg.seed, self.device)
+        self.key, kinit, kenv = rng.split(key, 3)
         self.net = VNet(cfg.model, board=(e.height, e.width),
-                        device=self.device)
-        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+                        device=self.device).init_flax_(kinit)
         self.rollout = make_sixten_rollout(
             self.env, self.net, cfg.horizon,
             distribution=cfg.train_distribution,
             epsilon=param_eval(cfg.epsilon), action_space=cfg.action_space)
         self.init_opt, self.update = make_sixten_update(e, self.net,
                                                         self.scfg, cfg.replay)
-        key = rng.prng_key(cfg.seed, self.device)
-        self.key, _kinit, kenv = rng.split(key, 3)
         self.state = self.init_opt(self.net)
         self.replay = replay_init(cfg.replay, self.device)
         self.env_state = self.env.reset(kenv)
@@ -911,8 +894,8 @@ class StandaloneSherlockTrainer:
     """Sherlock (delta-PPO) self-play in one process: the phi.delta
     rollout (one launch of the engine kernel's per-kind entry per tick),
     GAE, and the delta-PPO update with torch.optim.Adam.  The key chain
-    and every draw are JAX's; the initial weights are flax's initialisers
-    from a ``torch.Generator`` seeded with ``seed``.  ``phase_ms`` holds
+    and every draw are JAX's, the initial weights included.  ``phase_ms``
+    holds
     the masks, forward, tick, gae and update times."""
 
     def __init__(self, cfg: SherlockTrainerConfig, sherlock_cfg=None,
@@ -925,15 +908,14 @@ class StandaloneSherlockTrainer:
         self.device = resolve_device(device)
         e = cfg.env.engine
         self.env = TetrisVectorEnv(cfg.env, cfg.n_envs, device=self.device)
+        key = rng.prng_key(cfg.seed, self.device)
+        self.key, kinit, kenv = rng.split(key, 3)
         self.net = SherlockNet(cfg.model, board=(e.height, e.width),
-                               device=self.device)
-        self.net.init_flax_(torch.Generator().manual_seed(cfg.seed))
+                               device=self.device).init_flax_(kinit)
         self.rollout = make_sherlock_rollout(self.env, self.net, cfg.horizon,
                                              action_space=cfg.action_space)
         self.init_opt, self.update = make_sherlock_update(e, self.net,
                                                           self.scfg)
-        key = rng.prng_key(cfg.seed, self.device)
-        self.key, _kinit, kenv = rng.split(key, 3)
         self.state = self.init_opt(self.net)
         self.env_state = self.env.reset(kenv)
         self.total_steps = 0

@@ -202,7 +202,7 @@ def profile_update_steps(trainer, n_minibatches: int = 2):
 
     ppo = trainer.cfg.ppo
     _, seg, last = make_rollout_fn(trainer.env, trainer.net, 1)(
-        trainer.env_state, trainer.generator)
+        trainer.env_state, trainer.key)
     batch, _ = segment_to_batch(ppo, seg, last)
     n = n_minibatches * ppo.minibatch_size
     if batch.piece.shape[0] < n:

@@ -35,6 +35,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 from drl_tetris_tpu.models import nets as jnets  # noqa: E402
+from drl_tetris_tpu_torch.engine import rng  # noqa: E402
 from drl_tetris_tpu_torch.models import nets  # noqa: E402
 from drl_tetris_tpu_torch.models.convert import (params_from_flax,  # noqa: E402
                                                  params_to_flax)
@@ -156,7 +157,7 @@ def test_worker_view_shares_the_acting_modules(arch):
     cfg = nets.ModelConfig(compute_dtype="float32", architecture=arch,
                            **SMALL)
     net = nets.PPONet(cfg, device="cpu")
-    net.init_flax_(torch.Generator().manual_seed(1))
+    net.init_flax_(rng.prng_key(1))
     view = net.worker_view()
     assert {id(p) for p in view.parameters()} <= \
         {id(p) for p in net.parameters()}
@@ -176,7 +177,7 @@ def test_flax_initialisers(arch):
     kw = dict(compute_dtype="float32", architecture=arch)
     ref = params_from_flax(flax_params("PPONet", kw, 0, randomized=False))
     net = nets.PPONet(nets.ModelConfig(**kw), device="cpu")
-    got = net.init_flax_(torch.Generator().manual_seed(0)).state_dict()
+    got = net.init_flax_(rng.prng_key(1)).state_dict()
     assert set(got) == set(ref)
     n_checked = 0
     for k, v in got.items():

@@ -14,7 +14,10 @@ and resume (runtime/standalone.py), the train-state converters
   injected) keeps the key chain and env state bit-exact and the stats and
   parameters within tests/test_torch_trainer.py's tolerances.  One Adam
   step from the converted state equals optax's step (bias correction at
-  the restored count) to float32 rounding.
+  the restored count) to float32 rounding.  JAX's run and step are
+  committed (tests/jax_fixtures/checkpoint_resume.npz,
+  tests/torch_jax_fixtures.py); a ``slow`` test runs them again with JAX
+  and holds them to the file.
 * The bridge tool converts data/demo_weights; ``_load_agent`` rebuilds it
   from the side-file and its float32 forward matches the JAX agent's
   within 1e-4.
@@ -28,7 +31,8 @@ and resume (runtime/standalone.py), the train-state converters
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import assert_state_equal, rekey_jax_cache
+from tests.test_torch_harness import (assert_state_equal, jax_leaves,
+                                      rekey_jax_cache)
 
 rekey_jax_cache()
 
@@ -55,6 +59,7 @@ from drl_tetris_tpu_torch.models.convert import (params_from_flax,  # noqa: E402
 from drl_tetris_tpu_torch.runtime import checkpoint as ckpt  # noqa: E402
 from drl_tetris_tpu_torch.runtime.standalone import (  # noqa: E402
     StandaloneConfig, StandaloneTrainer)
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 from tests.test_torch_nets import DEMO_DIR, SMALL, make_inputs  # noqa: E402
 from tests.test_torch_ppo import jax_ppo_config, relerr  # noqa: E402
 from tests.test_torch_trainer import (EPOCHS, HORIZON, MB, N,  # noqa: E402
@@ -103,9 +108,9 @@ def test_save_restore_is_bit_exact(tmp_path):
     assert_same_state(tr.state_dict(), tr2.state_dict())
     assert ckpt.state_checksum(tr2.state_dict()) == \
         ckpt.state_checksum(state)
-    # the same next iteration: same games, same sampling noise
+    # the same next iteration: same games, same sampling noise (the
+    # restored key draws it)
     tr2.env_state = tr.env_state
-    tr2.generator.set_state(tr.generator.get_state())
     s1, s2 = tr.train_iteration(), tr2.train_iteration()
     assert s1 == s2
     assert_same_state(tr.state_dict(), tr2.state_dict())
@@ -173,19 +178,23 @@ def test_crash_mid_save_keeps_latest_step(tmp_path, monkeypatch):
 # a JAX run's train state, carried over
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
+def seeded_grads(params):
+    """Gradients for ``params`` (a flax tree) drawn from a numpy seed."""
+    rs = np.random.RandomState(0)
+    return jax.tree.map(lambda p: rs.standard_normal(p.shape).astype(
+        np.float32) * 1e-2, params)
+
+
+def jax_resume_run(d) -> dict:
     """One JAX StandaloneTrainer iteration (test_torch_trainer's config),
-    saved with the JAX checkpoint.save and read back raw; then JAX's
-    --resume from it and the next iteration, and the port's."""
-    d = str(tmp_path_factory.mktemp("jax_ckpt"))
+    saved with the JAX checkpoint.save in ``d`` and read back raw; JAX's
+    --resume from it and the next iteration, with its gumbel draws; and
+    optax's Adam step from the saved optimizer state on seeded gradients
+    (tests/jax_fixtures/checkpoint_resume.npz)."""
     mc = config.load("r5_learning")
     ppo = dataclasses.replace(mc.ppo, minibatch_size=MB,
                               n_train_epochs=EPOCHS)
     model = nets.ModelConfig(compute_dtype="float32", **SMALL)
-    cfg = StandaloneConfig(env=mc.env, model=model, ppo=ppo, n_envs=N,
-                           horizon=HORIZON, seed=SEED,
-                           lr_schedule=mc.value_lr)
     jschedule = jparameter.LinearParameter(**dataclasses.asdict(mc.value_lr))
     jtr = jstandalone.StandaloneTrainer(jstandalone.StandaloneConfig(
         env=JEnvConfig(), model=jnets.ModelConfig(**dataclasses.asdict(model)),
@@ -196,21 +205,59 @@ def jax_run(tmp_path_factory):
     latest = jtr.total_steps
     jckpt.save(d, latest, jtr.state)
     raw = jckpt.restore_raw(d)
-    opt_before = jtr.state.opt_state
+
+    # one more Adam step with optax on seeded gradients
+    params = jax.tree.map(jnp.asarray, raw["params"])
+    grads = jax.tree.map(jnp.asarray, seeded_grads(raw["params"]))
+    tx = optax.inject_hyperparams(optax.adam)(learning_rate=1e-4)
+    updates, new_opt = tx.update(grads, jtr.state.opt_state, params)
+    adam = dict(params=optax.apply_updates(params, updates),
+                mu=new_opt.inner_state[0].mu, nu=new_opt.inner_state[0].nu,
+                count=new_opt.count)
 
     # JAX --resume (cli/main.py:332-344) on a trainer in its fresh state
     jtr.state = jckpt.restore(d, jtr.state, step=latest)
     jtr.key = jax.random.fold_in(key0, latest)
     jtr.env_state = env0
-    gumbel = jax_gumbel(jtr)
+    gumbel = jax_gumbel(jtr).numpy()
+    jstats = jtr.train_iteration()
+    after = dict(total_steps=jtr.total_steps,
+                 key=np.asarray(jax.random.key_data(jtr.key)),
+                 state=jax_leaves(jtr.env_state),
+                 update_count=int(jtr.state.update_count), stats=jstats,
+                 params=jax.tree.map(np.asarray, jtr.state.params["params"]))
+    return dict(raw=raw, latest=latest, env0=jax_leaves(env0), adam=adam,
+                gumbel=gumbel, after=after)
+
+
+# slow: the JAX trainer's two iterations and a checkpoint, about 240 s cold
+@pytest.mark.slow
+def test_resume_fixture_regenerates(tmp_path):
+    fixtures.regenerates("checkpoint_resume",
+                         lambda: jax_resume_run(str(tmp_path)))
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """JAX's run (the fixture), and the port's trainer resumed from JAX's
+    raw state with --resume semantics and its next iteration (JAX's gumbel
+    draws injected)."""
+    ref = fixtures.load("checkpoint_resume")
+    mc = config.load("r5_learning")
+    ppo = dataclasses.replace(mc.ppo, minibatch_size=MB,
+                              n_train_epochs=EPOCHS)
+    model = nets.ModelConfig(compute_dtype="float32", **SMALL)
+    cfg = StandaloneConfig(env=mc.env, model=model, ppo=ppo, n_envs=N,
+                           horizon=HORIZON, seed=SEED,
+                           lr_schedule=mc.value_lr)
+    raw, latest = ref["raw"], int(ref["latest"])
     tr = StandaloneTrainer(cfg, device="cpu")
-    assert_state_equal(env0, tr.env_state, "fresh")
+    assert_state_equal(ref["env0"], tr.env_state, "fresh")
     tr.resume(ppo_state_from_flax(raw), latest)
     resumed = {k: p.detach().clone() for k, p in tr.net.named_parameters()}
-    jstats = jtr.train_iteration()
-    stats = tr.train_iteration(gumbel=gumbel)
-    return dict(cfg=cfg, raw=raw, opt_before=opt_before, latest=latest,
-                jtr=jtr, tr=tr, stats=stats, jstats=jstats, resumed=resumed)
+    stats = tr.train_iteration(gumbel=torch.from_numpy(ref["gumbel"]))
+    return dict(cfg=cfg, raw=raw, latest=latest, ref=ref, tr=tr, stats=stats,
+                resumed=resumed)
 
 
 def test_ppo_state_converters_round_trip(jax_run):
@@ -234,53 +281,44 @@ def test_ppo_state_converters_round_trip(jax_run):
 def test_adam_step_from_converted_state_matches_optax(jax_run):
     """Moments, count and lr carried over: one more Adam step on the same
     gradients gives optax's parameters and moments."""
-    raw, opt_state = jax_run["raw"], jax_run["opt_before"]
-    params = jax.tree.map(jnp.asarray, raw["params"])
-    rs = np.random.RandomState(0)
-    grads = jax.tree.map(lambda p: jnp.asarray(
-        rs.standard_normal(p.shape).astype(np.float32) * 1e-2), params)
-    tx = optax.inject_hyperparams(optax.adam)(learning_rate=1e-4)
-    updates, new_opt = tx.update(grads, opt_state, params)
-    new_params = params_from_flax(optax.apply_updates(params, updates))
-
+    raw, adam = jax_run["raw"], jax_run["ref"]["adam"]
+    new_params = params_from_flax(adam["params"])
     tr = StandaloneTrainer(jax_run["cfg"], device="cpu")
     tr.load_ppo_state(ppo_state_from_flax(raw))
     tr.state.optimizer.param_groups[0]["lr"] = 1e-4
-    g = params_from_flax(jax.tree.map(np.asarray, grads))
+    g = params_from_flax(seeded_grads(raw["params"]))
     for name, p in tr.net.named_parameters():
         p.grad = g[name].clone()
     tr.state.optimizer.step()
     got = tr.ppo_state_dict()["adam"]
-    want = {k: params_from_flax(getattr(new_opt.inner_state[0], k))
-            for k in ("mu", "nu")}
+    want = {k: params_from_flax(adam[k]) for k in ("mu", "nu")}
     for name, p in tr.net.named_parameters():
         for a, b in ((p.detach(), new_params[name]),
                      (got["exp_avg"][name], want["mu"][name]),
                      (got["exp_avg_sq"][name], want["nu"][name])):
             assert (a - b).abs().max().item() <= \
                 1e-6 * b.abs().max().item() + 1e-12, name
-        assert int(got["step"][name]) == int(new_opt.count)
+        assert int(got["step"][name]) == int(adam["count"])
 
 
 def test_resume_from_jax_state(jax_run):
     r = jax_run
-    jtr, tr = r["jtr"], r["tr"]
-    assert tr.total_steps == jtr.total_steps == 2 * r["latest"]
-    assert (tr.key.numpy().astype(np.uint32)
-            == np.asarray(jax.random.key_data(jtr.key))).all()
-    assert_state_equal(jtr.env_state, tr.env_state, "after resume")
+    after, tr = r["ref"]["after"], r["tr"]
+    assert tr.total_steps == int(after["total_steps"]) == 2 * r["latest"]
+    assert (tr.key.numpy().astype(np.uint32) == after["key"]).all()
+    assert_state_equal(after["state"], tr.env_state, "after resume")
     assert tr.state.optimizer.param_groups[0]["lr"] == \
         config.parameter.param_eval(r["cfg"].lr_schedule, r["latest"])
-    assert tr.state.update_count == int(jtr.state.update_count) == 2
-    assert set(r["stats"]) == set(r["jstats"])
-    for k, v in r["jstats"].items():
+    assert tr.state.update_count == int(after["update_count"]) == 2
+    jstats = {k: float(v) for k, v in after["stats"].items()}
+    assert set(r["stats"]) == set(jstats)
+    for k, v in jstats.items():
         got = r["stats"][k]
         if "saturation" in k:
             assert abs(v - got) <= 1.0 / MB + 1e-6, (k, v, got)
         else:
             assert relerr(v, got) < STAT_TOL, (k, v, got)
-    jparams = params_from_flax(jax.tree.map(np.asarray,
-                                            jtr.state.params["params"]))
+    jparams = params_from_flax(after["params"])
     steps = EPOCHS * (N * HORIZON // MB)
     tol = 2 * r["cfg"].ppo.lr * steps + 1e-6
     for k, p in tr.net.named_parameters():

@@ -9,7 +9,7 @@ in tests/test_torch_cli_dqn.py, the process runtime, ``train
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import REPO, rekey_jax_cache
+from tests.test_torch_harness import REPO, child_env, rekey_jax_cache
 
 rekey_jax_cache()
 
@@ -31,8 +31,7 @@ PER_ITER = N_ENVS * HORIZON
 
 
 def run(*args, timeout=300):
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+    env = child_env()
     out = subprocess.run([sys.executable, "-m", "drl_tetris_tpu_torch",
                           *args], capture_output=True, text=True, env=env,
                          timeout=timeout, cwd=REPO)

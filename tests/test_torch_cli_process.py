@@ -18,7 +18,7 @@ board, each server and process group at a free port found at run time:
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import REPO, rekey_jax_cache
+from tests.test_torch_harness import REPO, child_env, rekey_jax_cache
 
 rekey_jax_cache()
 
@@ -37,8 +37,7 @@ from drl_tetris_tpu_torch.runtime.kv import KVClient, free_port  # noqa: E402
 from tests.test_torch_cli import TINY  # noqa: E402
 
 N_ENVS, HORIZON = 4, 8
-ENV = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-           + os.environ.get("PYTHONPATH", ""))
+ENV = child_env()
 
 
 def start(*args):

@@ -28,11 +28,14 @@ Adam steps, lr 1e-4):
   update within the same tolerances.
 Measured on the CPU: targets 1.5e-7, priorities 2.4e-6, loss terms 5.5e-6
 relative, parameters 6.8e-8 absolute; PRIO_TOL and STAT_TOL are about 4x
-the gaps.
+the gaps.  JAX's pareto rollout is committed
+(tests/jax_fixtures/dqn_pareto_rollout.npz, tests/torch_jax_fixtures.py);
+a ``slow`` test runs it again with JAX and holds it to the file.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import assert_state_equal, rekey_jax_cache
+from tests.test_torch_harness import (assert_state_equal, jax_leaves,
+                                      rekey_jax_cache)
 
 rekey_jax_cache()
 
@@ -46,6 +49,7 @@ import pytest  # noqa: E402
 from drl_tetris_tpu.algos import dqn as jdqn  # noqa: E402
 from drl_tetris_tpu.algos import replay as jreplay  # noqa: E402
 from drl_tetris_tpu.algos import value_estimator as jve  # noqa: E402
+from drl_tetris_tpu.algos.rollout import HParams as JHParams  # noqa: E402
 from drl_tetris_tpu.algos.rollout import make_rollout_fn as j_rollout_fn  # noqa: E402
 from drl_tetris_tpu.config import presets as jpresets  # noqa: E402
 from drl_tetris_tpu.engine.core import EngineConfig as JEngineConfig  # noqa: E402
@@ -56,7 +60,7 @@ from drl_tetris_tpu.runtime import checkpoint as jckpt  # noqa: E402
 from drl_tetris_tpu.runtime import standalone as jstandalone  # noqa: E402
 from drl_tetris_tpu_torch.algos import dqn  # noqa: E402
 from drl_tetris_tpu_torch.algos import replay  # noqa: E402
-from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn  # noqa: E402
+from drl_tetris_tpu_torch.algos.rollout import HParams, make_rollout_fn  # noqa: E402
 from drl_tetris_tpu_torch.config import presets  # noqa: E402
 from drl_tetris_tpu_torch.engine.core import EngineConfig  # noqa: E402
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv  # noqa: E402
@@ -67,6 +71,7 @@ from drl_tetris_tpu_torch.models.convert import (dqn_state_from_flax,  # noqa: E
 from drl_tetris_tpu_torch.runtime import checkpoint as ckpt  # noqa: E402
 from drl_tetris_tpu_torch.runtime.standalone import (  # noqa: E402
     StandaloneDQNConfig, StandaloneDQNTrainer)
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 from tests.test_torch_nets import SMALL, small_params  # noqa: E402
 from tests.test_torch_ppo import relerr  # noqa: E402
 from tests.test_torch_replay import (assert_replay_equal, jseg,  # noqa: E402
@@ -115,25 +120,46 @@ def tkey(jkey):
         np.int64))
 
 
-def test_qnet_pareto_rollout_matches_jax():
-    got, ref = configs()
+def jax_pareto_rollout() -> dict:
+    """JAX's pareto rollout of a seeded QNet as the DQN trainer runs it
+    (its horizon, the sampling hyperparameters given as values), with its
+    gumbel draws, the env state after it as leaves, the
+    segment and the last values (tests/jax_fixtures/dqn_pareto_rollout.npz)."""
+    _, ref = configs()
     params = small_params(8)
     jnet = jnets.QNet(ref.model)
     jenv = JEnv(JEnvConfig(), N)
     js0 = jenv.reset(jax.random.PRNGKey(4))
     key = jax.random.PRNGKey(6)
-    js, jseg_, jlast = j_rollout_fn(jenv, jnet, 8, "pareto_distribution")(
-        {"params": params}, js0, key)
+    jhp = JHParams(epsilon=jnp.float32(0.3), temperature=jnp.float32(1.0),
+                   avg_traj_len=jnp.float32(12.0))
+    js, jseg_, jlast = j_rollout_fn(jenv, jnet, HORIZON,
+                                    "pareto_distribution")(
+        {"params": params}, js0, key, jhp)
     gumbel = np.stack([np.asarray(jax.random.gumbel(k, (N, 40), jnp.float32))
-                       for k in jax.random.split(key, 8)])
+                       for k in jax.random.split(key, HORIZON)])
+    return dict(gumbel=gumbel, js=jax_leaves(js), jseg=jseg_, jlast=jlast)
+
+
+# slow: JAX's pareto rollout, about 130 s cold
+@pytest.mark.slow
+def test_pareto_rollout_fixture_regenerates():
+    fixtures.regenerates("dqn_pareto_rollout", jax_pareto_rollout)
+
+
+def test_qnet_pareto_rollout_matches_jax():
+    """The pareto rollout as the DQN trainer runs it, against JAX's."""
+    ref = fixtures.load("dqn_pareto_rollout")
+    got, _ = configs()
     env = TetrisVectorEnv(EnvConfig(), N, device="cpu")
     net = nets.QNet(got.model, device="cpu")
-    net.load_state_dict(params_from_flax(params))
-    ts, seg, last = make_rollout_fn(env, net, 8, "pareto_distribution")(
-        env.reset(4), gumbel=torch.from_numpy(gumbel))
-    assert_state_equal(js, ts, "after the rollout")
+    net.load_state_dict(params_from_flax(small_params(8)))
+    ts, seg, last = make_rollout_fn(env, net, HORIZON, "pareto_distribution")(
+        env.reset(4), gumbel=torch.from_numpy(ref["gumbel"]),
+        hp=HParams(epsilon=0.3, temperature=1.0))
+    assert_state_equal(ref["js"], ts, "after the rollout")
     for name in seg._fields:
-        a, b = np.asarray(getattr(jseg_, name)), getattr(seg, name).numpy()
+        a, b = ref["jseg"][name], getattr(seg, name).numpy()
         if a.dtype == np.uint32:
             b = b.view(np.uint32)
         assert a.shape == b.shape and a.dtype == b.dtype, name
@@ -141,7 +167,7 @@ def test_qnet_pareto_rollout_matches_jax():
             assert np.abs(a - b).max() < 1e-5, name
         else:
             assert (a == b).all(), name
-    assert np.abs(np.asarray(jlast) - last.numpy()).max() < 1e-5
+    assert np.abs(ref["jlast"] - last.numpy()).max() < 1e-5
     assert len(set(seg.trans.flatten().tolist())) > 3
 
 

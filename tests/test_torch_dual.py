@@ -6,7 +6,7 @@ package's, on a small float32 net (``SMALL``) and the 22 x 10 board:
   ``split_dual_segment`` (GAE per policy with unsigned gamma) on a seeded
   segment whose players alternate from a random seat per game: integer
   and boolean leaves bit for bit, floats within 1e-6;
-* the dual rollout (8 games, horizon 8) under ``argmax`` (PPONets),
+* the dual rollout (8 games, horizon 16) under ``argmax`` (PPONets),
   ``pi`` with JAX's gumbel draws injected (the tick key split (k0, k1),
   one categorical per policy) and ``epsilon`` (QNets; the draws follow
   JAX's keys, nothing injected): ints, boards and the final state equal,
@@ -24,14 +24,20 @@ package's, on a small float32 net (``SMALL``) and the 22 x 10 board:
 * the win-rate gate: a policy ahead by more than the tolerance keeps its
   parameters while the other trains, as tests/test_dual_dqn.py:57 holds
   the JAX package.
+
+JAX's rollouts and trainer iterations are committed (tests/jax_fixtures/
+dual_*.npz, tests/torch_jax_fixtures.py); a ``slow`` test runs them again
+with JAX and holds them to the files.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import assert_state_equal, rekey_jax_cache
+from tests.test_torch_harness import (assert_state_equal, jax_leaves,
+                                      rekey_jax_cache)
 
 rekey_jax_cache()
 
 import dataclasses  # noqa: E402
+import types  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -44,7 +50,7 @@ from drl_tetris_tpu.env.env import (EnvConfig as JEnvConfig,  # noqa: E402
 from drl_tetris_tpu.models import nets as jnets  # noqa: E402
 from drl_tetris_tpu.runtime import standalone as jstandalone  # noqa: E402
 from drl_tetris_tpu_torch import config  # noqa: E402
-from drl_tetris_tpu_torch.algos import dual  # noqa: E402
+from drl_tetris_tpu_torch.algos import dual, replay  # noqa: E402
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv  # noqa: E402
 from drl_tetris_tpu_torch.models import nets  # noqa: E402
 from drl_tetris_tpu_torch.models.convert import params_from_flax  # noqa: E402
@@ -57,6 +63,7 @@ from tests.test_torch_dqn import (DQN_PRESETS, OVERRIDES,  # noqa: E402
 from tests.test_torch_nets import SMALL, small_params  # noqa: E402
 from tests.test_torch_ppo import jax_ppo_config, relerr  # noqa: E402
 from tests.test_torch_replay import jseg, seg_arrays, tseg  # noqa: E402
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 
 N, HORIZON, MB, EPOCHS, SEED = 8, 16, 32, 2, 5
 DQN_HORIZON = 32
@@ -134,41 +141,65 @@ def jax_dual_gumbel(key, horizon, n, width):
     return torch.from_numpy(np.stack(out))
 
 
-@pytest.mark.parametrize("distribution", ["argmax", "pi", "epsilon"])
-def test_dual_rollout_matches_jax(distribution):
-    cls = "QNet" if distribution == "epsilon" else "PPONet"
-    kw = dict(compute_dtype="float32", **SMALL)
-    params = [small_params(s) for s in (11, 12)]
+DUAL_KEY = 9
+
+
+def rollout_kw(distribution):
+    return dict(compute_dtype="float32", **SMALL), (
+        "QNet" if distribution == "epsilon" else "PPONet")
+
+
+def rollout_params():
+    return [small_params(s) for s in (11, 12)]
+
+
+def jax_dual_rollout(distribution) -> dict:
+    """JAX's dual rollout from seeded params: the env state after it as
+    leaves, the segment, the last values and (under pi) its
+    gumbel draws (tests/jax_fixtures/dual_rollout_DISTRIBUTION.npz)."""
+    kw, cls = rollout_kw(distribution)
+    params = rollout_params()
     jnet = getattr(jnets, cls)(jnets.ModelConfig(**kw))
     jenv = JEnv(JEnvConfig(), N)
     js0 = jenv.reset(jax.random.PRNGKey(3))
-    key = jax.random.PRNGKey(9)
+    key = jax.random.PRNGKey(DUAL_KEY)
     hp = None
     if distribution == "epsilon":
         from drl_tetris_tpu.algos.rollout import HParams as JHParams
         hp = JHParams(epsilon=jnp.float32(0.4), temperature=jnp.float32(1.0),
                       avg_traj_len=jnp.float32(12.0))
     js, jseg_, jlast = jdual.make_dual_rollout_fn(
-        jenv, jnet, 8, distribution)({"params": params[0]},
+        jenv, jnet, HORIZON, distribution)({"params": params[0]},
                                      {"params": params[1]}, js0, key, hp)
+    out = dict(js=jax_leaves(js), jseg=jseg_, jlast=jlast)
+    if distribution == "pi":
+        out["gumbel"] = jax_dual_gumbel(key, HORIZON, N, 10).numpy()
+    return out
 
+
+@pytest.mark.parametrize("distribution", ["argmax", "pi", "epsilon"])
+def test_dual_rollout_matches_jax(distribution):
+    ref = fixtures.load(f"dual_rollout_{distribution}")
+    kw, cls = rollout_kw(distribution)
     env = TetrisVectorEnv(EnvConfig(), N, device="cpu")
     tnets = []
-    for p in params:
+    for p in rollout_params():
         net = getattr(nets, cls)(nets.ModelConfig(**kw), device="cpu")
         net.load_state_dict(params_from_flax(p))
         tnets.append(net)
-    gumbel = (jax_dual_gumbel(key, 8, N, 10) if distribution == "pi"
+    gumbel = (torch.from_numpy(ref["gumbel"]) if distribution == "pi"
               else None)
-    tkey = torch.from_numpy(np.asarray(jax.random.key_data(key)).astype(
-        np.int64))
+    tkey = torch.from_numpy(np.asarray(jax.random.key_data(
+        jax.random.PRNGKey(DUAL_KEY))).astype(np.int64))
     from drl_tetris_tpu_torch.algos.rollout import HParams
-    ts, seg, last = dual.make_dual_rollout_fn(env, tnets, 8, distribution)(
+    ts, seg, last = dual.make_dual_rollout_fn(env, tnets, HORIZON,
+                                              distribution)(
         env.reset(3), gumbel=gumbel, key=tkey,
         hp=HParams(epsilon=0.4) if distribution == "epsilon" else None)
-    assert_state_equal(js, ts, "after the dual rollout")
-    assert_fields(jseg_, seg, seg._fields, tol=FLOAT_TOL)
-    assert np.abs(np.asarray(jlast) - last.numpy()).max() < FLOAT_TOL
+    assert_state_equal(ref["js"], ts, "after the dual rollout")
+    assert_fields(types.SimpleNamespace(**ref["jseg"]), seg, seg._fields,
+                  tol=FLOAT_TOL)
+    assert np.abs(ref["jlast"] - last.numpy()).max() < FLOAT_TOL
     # both policies acted, each on its own seat
     assert set(seg.player.flatten().tolist()) == {0, 1}
     assert len(set(seg.trans.flatten().tolist())) > 1
@@ -196,8 +227,7 @@ def jkey(jtr):
     return np.asarray(jax.random.key_data(jtr.key))
 
 
-@pytest.fixture(scope="module")
-def ppo_iterations():
+def ppo_configs():
     ppo = dataclasses.replace(config.load("r5_learning").ppo,
                               single_policy=False, minibatch_size=MB,
                               n_train_epochs=EPOCHS)
@@ -207,24 +237,50 @@ def ppo_iterations():
     jcfg = jstandalone.DualPolicyConfig(
         env=JEnvConfig(), model=jnets.ModelConfig(**dataclasses.asdict(model)),
         ppo=jax_ppo_config(ppo), n_envs=N, horizon=HORIZON, seed=SEED)
-    jtr = jstandalone.DualPolicyTrainer(jcfg)
-    tr = DualPolicyTrainer(cfg, device="cpu")
-    for net, st in zip(tr.nets, jtr.states):
-        net.load_state_dict(params_from_flax(st.params))
-    assert_state_equal(jtr.env_state, tr.env_state, "reset")
-    assert (tr.key.numpy().astype(np.uint32) == jkey(jtr)).all()
-    out = []
-    for it in range(2):
+    return cfg, jcfg
+
+
+def winrate(tr):
+    return np.asarray(tr.winrate.rate_0)
+
+
+def jax_ppo_iterations() -> dict:
+    """JAX's DualPolicyTrainer: its initial params, reset and key, then
+    per iteration its pi noise, stats, env state, key, win rate and params
+    (tests/jax_fixtures/dual_ppo_iterations.npz)."""
+    jtr = jstandalone.DualPolicyTrainer(ppo_configs()[1])
+    out = dict(params=[jax.tree.map(np.asarray, s.params)
+                       for s in jtr.states],
+               reset=jax_leaves(jtr.env_state), key=jkey(jtr), its=[])
+    for _ in range(2):
         _, kroll, _, _ = jax.random.split(jtr.key, 4)
-        gumbel = jax_dual_gumbel(kroll, HORIZON, N, 10)
+        gumbel = jax_dual_gumbel(kroll, HORIZON, N, 10).numpy()
         jstats = jtr.train_iteration()
-        stats = tr.train_iteration(gumbel=gumbel)
+        out["its"].append(dict(
+            gumbel=gumbel, stats={k: float(v) for k, v in jstats.items()},
+            env=jax_leaves(jtr.env_state), key=jkey(jtr), rate=winrate(jtr),
+            params=[jax.tree.map(np.asarray, s.params) for s in jtr.states]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ppo_iterations():
+    ref = fixtures.load("dual_ppo_iterations")
+    cfg = ppo_configs()[0]
+    tr = DualPolicyTrainer(cfg, device="cpu")
+    for net, p in zip(tr.nets, ref["params"]):
+        net.load_state_dict(params_from_flax(p))
+    assert_state_equal(ref["reset"], tr.env_state, "reset")
+    assert (tr.key.numpy().astype(np.uint32) == ref["key"]).all()
+    out = []
+    for want in ref["its"]:
+        stats = tr.train_iteration(gumbel=torch.from_numpy(want["gumbel"]))
         out.append(dict(
-            jstats=dict(jstats), stats=dict(stats), jenv=jtr.env_state,
-            env=tr.env_state, jkey=jkey(jtr),
+            jstats=want["stats"], stats=dict(stats), jenv=want["env"],
+            env=tr.env_state, jkey=want["key"],
             key=tr.key.numpy().astype(np.uint32),
-            jrate=jtr.winrate.rate_0, rate=tr.winrate.rate_0,
-            jparams=[s.params for s in jtr.states],
+            jrate=want["rate"], rate=tr.winrate.rate_0,
+            jparams=want["params"],
             params=[{k: p.detach().clone() for k, p in n.named_parameters()}
                     for n in tr.nets], phase=dict(tr.phase_ms)))
     return dict(cfg=cfg, tr=tr, out=out)
@@ -257,42 +313,87 @@ def test_dual_ppo_trainer_matches_jax(ppo_iterations):
                tr.nets[0].state_dict().items())
 
 
-@pytest.fixture(scope="module")
-def dqn_iterations():
+def dqn_configs_kw():
     from drl_tetris_tpu_torch.config import presets
     from drl_tetris_tpu.config import presets as jpresets
     got = presets.load(DQN_PRESETS, OVERRIDES)
     ref = jpresets.resolve(jpresets.merge_settings(DQN_PRESETS, OVERRIDES))
     kw = dict(n_envs=N, horizon=DQN_HORIZON, epsilon=0.3, seed=SEED,
               train_distribution="adaptive_epsilon")
-    cfg = DualPolicyDQNConfig(env=got.env, model=got.model, dqn=got.dqn,
-                              replay=got.replay, **kw)
+    return got, ref, kw
+
+
+def replay_rows(jst) -> dict:
+    return {f.name: np.asarray(getattr(jst, f.name))
+            for f in dataclasses.fields(replay.ReplayState)}
+
+
+def jax_dqn_iterations() -> dict:
+    """JAX's DualPolicyDQNTrainer: its initial params and reference params,
+    its reset, then per iteration both replays, the stats, env state, key,
+    win rate, trajectory-length EMA and params
+    (tests/jax_fixtures/dual_dqn_iterations.npz)."""
+    _, ref, kw = dqn_configs_kw()
     jtr = jstandalone.DualPolicyDQNTrainer(jstandalone.DualPolicyDQNConfig(
         env=ref.env, model=ref.model, dqn=ref.dqn, replay=ref.replay, **kw))
-    tr = DualPolicyDQNTrainer(cfg, device="cpu")
-    for net, st in zip(tr.nets, jtr.states):
-        net.load_state_dict(params_from_flax(st.params))
-    for st, jst in zip(tr.states, jtr.states):
-        st.ref_net.load_state_dict(params_from_flax(jst.ref_params))
-    assert_state_equal(jtr.env_state, tr.env_state, "reset")
-    out = []
-    for it in range(2):
+    out = dict(params=[jax.tree.map(np.asarray, s.params)
+                       for s in jtr.states],
+               ref_params=[jax.tree.map(np.asarray, s.ref_params)
+                           for s in jtr.states],
+               reset=jax_leaves(jtr.env_state), its=[])
+    for _ in range(2):
         jstats = jtr.train_iteration()
+        out["its"].append(dict(
+            replays=[replay_rows(r) for r in jtr.replays],
+            stats={k: float(v) for k, v in jstats.items()},
+            env=jax_leaves(jtr.env_state), key=jkey(jtr), rate=winrate(jtr),
+            atl=float(jtr.avg_traj_len),
+            params=[jax.tree.map(np.asarray, s.params) for s in jtr.states]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def dqn_iterations():
+    ref = fixtures.load("dual_dqn_iterations")
+    got, _, kw = dqn_configs_kw()
+    cfg = DualPolicyDQNConfig(env=got.env, model=got.model, dqn=got.dqn,
+                              replay=got.replay, **kw)
+    tr = DualPolicyDQNTrainer(cfg, device="cpu")
+    for net, p in zip(tr.nets, ref["params"]):
+        net.load_state_dict(params_from_flax(p))
+    for st, p in zip(tr.states, ref["ref_params"]):
+        st.ref_net.load_state_dict(params_from_flax(p))
+    assert_state_equal(ref["reset"], tr.env_state, "reset")
+    out = []
+    for want in ref["its"]:
         stats = tr.train_iteration()
         for p in (0, 1):
-            assert_replay_rows_equal(jtr.replays[p], tr.replays[p])
+            assert_replay_rows_equal(
+                types.SimpleNamespace(**want["replays"][p]), tr.replays[p])
         out.append(dict(
-            jstats=dict(jstats), stats=dict(stats), jenv=jtr.env_state,
-            env=tr.env_state, jkey=jkey(jtr),
+            jstats=want["stats"], stats=dict(stats), jenv=want["env"],
+            env=tr.env_state, jkey=want["key"],
             key=tr.key.numpy().astype(np.uint32),
-            jrate=jtr.winrate.rate_0, rate=tr.winrate.rate_0,
-            jatl=float(jtr.avg_traj_len), atl=float(tr.avg_traj_len),
-            jprio=[np.asarray(r.prio) for r in jtr.replays],
+            jrate=want["rate"], rate=tr.winrate.rate_0,
+            jatl=float(want["atl"]), atl=float(tr.avg_traj_len),
+            jprio=[r["prio"] for r in want["replays"]],
             prio=[r.prio.clone() for r in tr.replays],
-            jparams=[s.params for s in jtr.states],
+            jparams=want["params"],
             params=[{k: p.detach().clone() for k, p in n.named_parameters()}
                     for n in tr.nets], phase=dict(tr.phase_ms)))
     return dict(cfg=cfg, tr=tr, out=out)
+
+
+# slow: JAX's dual rollouts and trainers, 100-150 s each cold
+@pytest.mark.slow
+@pytest.mark.parametrize("name, compute", [
+    ("dual_rollout_argmax", lambda: jax_dual_rollout("argmax")),
+    ("dual_rollout_pi", lambda: jax_dual_rollout("pi")),
+    ("dual_rollout_epsilon", lambda: jax_dual_rollout("epsilon")),
+    ("dual_ppo_iterations", jax_ppo_iterations),
+    ("dual_dqn_iterations", jax_dqn_iterations)])
+def test_dual_fixture_regenerates(name, compute):
+    fixtures.regenerates(name, compute)
 
 
 def test_dual_dqn_trainer_matches_jax(dqn_iterations):

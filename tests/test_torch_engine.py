@@ -6,12 +6,16 @@ The JAX side of the engine kernel's function is the XLA ``env.step``
 are replayed from a line-clearing policy so that line clears, combos,
 garbage sent and received, deaths and round resets all occur; the test
 asserts that each did.  A host (g++) build of the CUDA kernel's tick is
-held against the plain version on the same trajectory.
+held against the plain version on the same trajectory.  JAX's
+trajectories are committed (tests/jax_fixtures/engine_width*.npz: the
+reset and final states, and each tick's leaf digests, rewards and dones;
+tests/torch_jax_fixtures.py); a ``slow`` test steps JAX again and holds
+it to the files.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import (assert_state_equal, rekey_jax_cache,
-                                      REPO)
+from tests.test_torch_harness import (assert_state_equal, jax_leaves,
+                                      rekey_jax_cache, to_torch_state, REPO)
 
 rekey_jax_cache()
 
@@ -40,6 +44,7 @@ from drl_tetris_tpu_torch.engine.core import (EngineConfig,  # noqa: E402
                                               tree_map)
 from drl_tetris_tpu_torch.env.env import (EnvConfig, TetrisVectorEnv,  # noqa: E402
                                           step_plain)
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 
 N_GAMES = 64
 N_TICKS = 64
@@ -144,32 +149,58 @@ def jax_env(width):
     return _JENVS[width]
 
 
-def run_parity(width, n_ticks, seed):
-    """Drive JAX env.step and the port's plain step with the same actions
-    for n_ticks; compare every leaf, reward and done each tick.  Returns
-    (actions (T, N) x2, the port's start state, event counts)."""
+def actions_source(seed):
+    """The generator and random rows of a parity run's actions."""
+    gen = torch.Generator().manual_seed(seed)
+    return gen, torch.rand(N_GAMES, 2, generator=gen) < 0.35
+
+
+def jax_parity_run(width, n_ticks, seed) -> dict:
+    """JAX env.step for n_ticks along the actions the greedy policy picks
+    on JAX's states: the reset and the final state as leaves, and each
+    tick's leaf digests, rewards and dones
+    (tests/jax_fixtures/engine_widthW.npz)."""
     jenv = jax_env(width)
     tenv = TetrisVectorEnv(port_cfg(width), N_GAMES, device="cpu")
+    like = tenv.reset(seed)
     js = jenv.reset(jax.random.PRNGKey(seed))
+    gen, random_rows = actions_source(seed)
+    out = dict(reset=jax_leaves(js), ticks=[])
+    for _ in range(n_ticks):
+        r, t = greedy_actions(tenv.cfg, to_torch_state(js, like),
+                              random_rows, gen)
+        js, rew, done = jenv.step(js, jnp.asarray(r.numpy()),
+                                  jnp.asarray(t.numpy()))
+        out["ticks"].append(dict(digests=fixtures.digests(jax_leaves(js)),
+                                 rew=rew, done=done))
+    out["final"] = jax_leaves(js)
+    return out
+
+
+def run_parity(width, n_ticks, seed):
+    """Drive the port's plain step with the actions JAX's run took
+    (tests/jax_fixtures/engine_widthW.npz) for n_ticks; compare every
+    leaf, reward and done each tick.  Returns (actions (T, N) x2, the
+    port's start state, its final state, event counts)."""
+    ref = fixtures.load(f"engine_width{width}")
+    assert len(ref["ticks"]) == n_ticks
+    tenv = TetrisVectorEnv(port_cfg(width), N_GAMES, device="cpu")
     ts = tenv.reset(seed)
-    assert_state_equal(js, ts, "reset")
+    assert_state_equal(ref["reset"], ts, "reset")
     start = ts
-    gen = torch.Generator().manual_seed(seed)
-    random_rows = torch.rand(N_GAMES, 2, generator=gen) < 0.35
+    gen, random_rows = actions_source(seed)
     ev = dict(done=0, clears=0, combos=0, sent=0, received=0,
               combo_sent=0, blocked=0, wins=0)
     ars, ats = [], []
-    for tick in range(n_ticks):
+    for tick, want in enumerate(ref["ticks"]):
         r, t = greedy_actions(tenv.cfg, ts, random_rows, gen)
         ars.append(r)
         ats.append(t)
         prev = ts.engine.players
-        js, jrew, jdone = jenv.step(js, jnp.asarray(r.numpy()),
-                                    jnp.asarray(t.numpy()))
         ts, trew, tdone = tenv.step(ts, r, t)
-        assert_state_equal(js, ts, f"tick {tick}")
-        assert (np.asarray(jrew) == trew.numpy()).all(), tick
-        assert (np.asarray(jdone) == tdone.numpy()).all(), tick
+        fixtures.assert_digests(want["digests"], ts, f"tick {tick}")
+        assert (want["rew"] == trew.numpy()).all(), tick
+        assert (want["done"] == tdone.numpy()).all(), tick
         ps = ts.engine.players
         live = ~tdone[:, None]
         ev["done"] += int(tdone.sum())
@@ -185,13 +216,22 @@ def run_parity(width, n_ticks, seed):
                                  & (ps.combo_count == 0)
                                  & (ps.lines_sent > prev.lines_sent)
                                  & live).sum())
-    assert (ts.rounds_played.numpy() == np.asarray(js.rounds_played)).all()
+    assert_state_equal(ref["final"], ts, "final")
     return (torch.stack(ars), torch.stack(ats)), start, ts, ev
 
 
 @pytest.fixture(scope="module")
 def trajectory():
     return run_parity(10, N_TICKS, seed=7)
+
+
+# slow: JAX's env step, about 150 s cold at each width
+@pytest.mark.slow
+@pytest.mark.parametrize("width, n_ticks, seed", [(10, N_TICKS, 7),
+                                                  (25, 60, 3)])
+def test_engine_fixture_regenerates(width, n_ticks, seed):
+    fixtures.regenerates(f"engine_width{width}",
+                         lambda: jax_parity_run(width, n_ticks, seed))
 
 
 def port_cfg(width):

@@ -1,7 +1,9 @@
 """The port's plain engine against the JAX package at width 25, the widest
 board EngineConfig allows and beyond the f32-exact guard of the TPU
 kernel's matmul shifts.  A module of its own, so that under ``--dist
-loadfile`` its JAX compiles run beside those of test_torch_engine.py."""
+loadfile`` it runs beside test_torch_engine.py.  JAX's run is committed
+(tests/jax_fixtures/engine_width25.npz, regenerated by
+test_torch_engine.py's ``slow`` test)."""
 import torch  # noqa: F401,I001  (first: see test_torch_harness)
 
 from tests.test_torch_harness import rekey_jax_cache

@@ -8,12 +8,15 @@ macros of placement_keys.
 Games start from crowded boards (engine/checks.py) so that rounds end
 within the replayed ticks.  JAX's step_place and step_pose are its
 step_mixed and step_mixed_pose with every game of one kind (the same make
-phase and finish phase), which keeps the JAX side at three compiles.
+phase and finish phase), which keeps the JAX side at three compiles.  JAX's ticks of each
+variant are committed (tests/jax_fixtures/env_spaces_*.npz,
+tests/torch_jax_fixtures.py); a ``slow`` test steps JAX again and holds
+it to the files.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import (assert_state_equal, rekey_jax_cache,
-                                      to_torch_state)
+from tests.test_torch_harness import (assert_state_equal, jax_leaves,
+                                      rekey_jax_cache, to_torch_state)
 
 rekey_jax_cache()
 
@@ -32,6 +35,7 @@ from drl_tetris_tpu_torch.engine import step as S  # noqa: E402
 from drl_tetris_tpu_torch.engine.core import tree_leaves  # noqa: E402
 from drl_tetris_tpu_torch.env.env import (EnvConfig, TetrisVectorEnv,  # noqa: E402
                                           take_player)
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 from tests.test_torch_engine import (assert_torch_states_equal,  # noqa: E402
                                      host_kernel_lib)
 
@@ -136,26 +140,46 @@ def host_step(lib):
     return step
 
 
-@pytest.mark.parametrize("variant", ["place", "pose", "mixed", "mixed_pose",
-                                     "mixed_place_pose"])
+VARIANTS = ["place", "pose", "mixed", "mixed_pose", "mixed_place_pose"]
+
+
+def jax_variant_run(envs, variant) -> dict:
+    """T ticks of JAX's step for ``variant`` from the crowded boards, the
+    actions drawn as the test draws them from JAX's states: each tick's
+    leaf digests, reward and done, and the final state as leaves
+    (tests/jax_fixtures/env_spaces_VARIANT.npz)."""
+    _, tenv, js, ts, jfns = envs
+    rs = np.random.RandomState(len(variant))
+    ticks = []
+    for _ in range(T):
+        _, (jname, jargs) = make_actions(variant, tenv,
+                                         to_torch_state(js, ts), rs)
+        js, jrew, jdone = jfns[jname](js, *[jnp.asarray(a.numpy())
+                                            for a in jargs])
+        ticks.append(dict(digests=fixtures.digests(jax_leaves(js)),
+                          rew=jrew, done=jdone))
+    return dict(ticks=ticks, final=jax_leaves(js))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_step_variant_matches_jax(envs, variant, monkeypatch):
     """T ticks of one variant from crowded boards: the port's plain tick
     equals JAX's every tick, and the host build of the kernel's per-kind
     entry equals the plain tick from the same state."""
-    _, tenv, js, ts, jfns = envs
+    ref = fixtures.load(f"env_spaces_{variant}")
+    _, tenv, _, ts, _ = envs
     lib = host_kernel_lib()
     rs = np.random.RandomState(len(variant))
     plain_step = cuda_tick.step
     n_done = 0
-    for tick in range(T):
-        (fn, targs), (jname, jargs) = make_actions(variant, tenv, ts, rs)
-        js, jrew, jdone = jfns[jname](js, *[jnp.asarray(a.numpy())
-                                            for a in jargs])
+    assert len(ref["ticks"]) == T
+    for tick, want in enumerate(ref["ticks"]):
+        (fn, targs), _ = make_actions(variant, tenv, ts, rs)
         before = ts
         ts, rew, done = fn(ts, *targs)
-        assert_state_equal(js, ts, f"{variant} tick {tick}")
-        assert (np.asarray(jrew) == rew.numpy()).all(), tick
-        assert (np.asarray(jdone) == done.numpy()).all(), tick
+        fixtures.assert_digests(want["digests"], ts, f"{variant} tick {tick}")
+        assert (want["rew"] == rew.numpy()).all(), tick
+        assert (want["done"] == done.numpy()).all(), tick
         n_done += int(done.sum())
         if lib is not None:
             monkeypatch.setattr(cuda_tick, "step", host_step(lib))
@@ -163,7 +187,16 @@ def test_step_variant_matches_jax(envs, variant, monkeypatch):
             monkeypatch.setattr(cuda_tick, "step", plain_step)
             assert torch.equal(hrew, rew) and torch.equal(hdone, done), tick
             assert_torch_states_equal(hs, ts, f"host {variant} {tick}")
+    assert_state_equal(ref["final"], ts, f"{variant} final")
     assert n_done > 0
+
+
+# slow: a JAX program each, 105-135 s cold
+@pytest.mark.slow
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_fixture_regenerates(envs, variant):
+    fixtures.regenerates(f"env_spaces_{variant}",
+                         lambda: jax_variant_run(envs, variant))
 
 
 def test_get_actions_and_mirrored_observe(envs):

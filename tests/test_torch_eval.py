@@ -7,7 +7,10 @@ Elo and scoreboard (utils/) against the JAX package's.
   net, ``argmax``, 8 games per pair on a 12 x 8 board) gives the JAX
   package's scoreboard game for game, and ``fit_elo`` within 1e-9; so
   does one of a QNet agent sampling epsilon-greedy (epsilon 0.2, JAX's
-  key chain) against an ``argmax`` PPONet, 4 games per pair.
+  key chain) against an ``argmax`` PPONet, 4 games per pair.  JAX's
+  round robins are committed (tests/jax_fixtures/eval_*.npz,
+  tests/torch_jax_fixtures.py); a ``slow`` test plays them again with
+  JAX and holds them to the files.
 * The training league snapshots, plays the random anchor, its fixed
   anchors and its pool, and appends one refit per evaluation to ``elo_history.jsonl``.
 * An unknown agent kind raises, rendered or not; a rendered round robin
@@ -34,7 +37,7 @@ from drl_tetris_tpu.models import nets as jnets  # noqa: E402
 from drl_tetris_tpu.runtime import evaluate as jevaluate  # noqa: E402
 from drl_tetris_tpu.utils import elo as jelo  # noqa: E402
 from drl_tetris_tpu.utils import scoreboard as jscoreboard  # noqa: E402
-from drl_tetris_tpu_torch.engine import cuda_tick  # noqa: E402
+from drl_tetris_tpu_torch.engine import cuda_tick, rng  # noqa: E402
 from drl_tetris_tpu_torch.engine.core import EngineConfig  # noqa: E402
 from drl_tetris_tpu_torch.env.env import EnvConfig  # noqa: E402
 from drl_tetris_tpu_torch.models import nets  # noqa: E402
@@ -42,6 +45,7 @@ from drl_tetris_tpu_torch.models.convert import params_from_flax  # noqa: E402
 from drl_tetris_tpu_torch.runtime import evaluate  # noqa: E402
 from drl_tetris_tpu_torch.runtime.league import TrainingLeague  # noqa: E402
 from drl_tetris_tpu_torch.utils import elo, scoreboard  # noqa: E402
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 from tests.test_torch_nets import SMALL, randomize  # noqa: E402
 
 H, W = 12, 8
@@ -127,38 +131,60 @@ def port_net(params):
     return net
 
 
-def test_argmax_round_robin_matches_jax(monkeypatch):
+def board_json(board) -> dict:
+    """A scoreboard's players, wins and games as JSON strings (a fixture's
+    leaves)."""
+    return dict(players=json.dumps(list(board.players)), **{
+        k: json.dumps(sorted([a, b, n] for (a, b), n in
+                             getattr(board, k).items()))
+        for k in ("wins", "games")})
+
+
+def jax_argmax_round_robin() -> dict:
+    """The JAX package's argmax round robin of two seeded agents and the
+    fitted Elo (tests/jax_fixtures/eval_argmax_round_robin.npz)."""
     params = [board_params(s) for s in (1, 2)]
     jnet = jnets.PPONet(jnets.ModelConfig(compute_dtype="float32", **SMALL))
     jagents = [jevaluate.EvalAgent(name=f"a{i}", params={"params": p},
                                    net=jnet, distribution="argmax")
                for i, p in enumerate(params)]
+    jenv = JEnvConfig(engine=JEngineConfig(height=H, width=W))
+    ref = jevaluate.round_robin(jenv, jagents, games_per_pair=GAMES, seed=5)
+    return dict(board=board_json(ref), fit=jelo.fit_elo(ref))
+
+
+def test_argmax_round_robin_matches_jax(monkeypatch):
+    ref = fixtures.load("eval_argmax_round_robin")
     agents = [evaluate.EvalAgent(name=f"a{i}", net=port_net(p),
                                  distribution="argmax")
-              for i, p in enumerate(params)]
-    jenv = JEnvConfig(engine=JEngineConfig(height=H, width=W))
+              for i, p in enumerate([board_params(s) for s in (1, 2)])]
     env = EnvConfig(engine=EngineConfig(height=H, width=W))
-    ref = jevaluate.round_robin(jenv, jagents, games_per_pair=GAMES, seed=5)
     ticks = []
     step = cuda_tick.step
     monkeypatch.setattr(cuda_tick, "step", lambda *a: ticks.append(1) or
                         step(*a))
     got = evaluate.round_robin(env, agents, games_per_pair=GAMES, seed=5)
-    assert got.players == ref.players
-    assert dict(got.wins) == dict(ref.wins)
-    assert dict(got.games) == dict(ref.games)
+    assert board_json(got) == {k: str(v) for k, v in ref["board"].items()}
     assert sum(got.games.values()) == 2 * GAMES        # every game counted
     assert sum(got.wins.values()) > 0
     assert len(ticks) % evaluate.CHUNK == 0 and len(ticks) > 0
-    fit, jfit = elo.fit_elo(got), jelo.fit_elo(ref)
-    assert all(abs(fit[k] - jfit[k]) < 1e-9 for k in jfit)
+    fit = elo.fit_elo(got)
+    assert set(fit) == set(ref["fit"])
+    assert all(abs(fit[k] - float(v)) < 1e-9 for k, v in ref["fit"].items())
 
 
-def test_epsilon_qnet_round_robin_matches_jax():
+def qnet_round_robin_params():
     # the QNet's keyboard kernel unscaled: A = tanh(logits) would saturate
     # at 1.0 in many cells, and argmax over float32 ties of tanh is not
     # held across frameworks
-    params = [board_params(7, kbd_scale=1.0), board_params(8)]
+    return [board_params(7, kbd_scale=1.0), board_params(8)]
+
+
+def jax_epsilon_qnet_round_robin() -> dict:
+    """The JAX package's round robin of an epsilon-greedy QNet agent
+    against an argmax PPONet (tests/jax_fixtures/
+    eval_epsilon_qnet_round_robin.npz)."""
+    params = qnet_round_robin_params()
     model = dict(compute_dtype="float32", **SMALL)
     jagents = [
         jevaluate.EvalAgent(name="q", params={"params": params[0]},
@@ -167,18 +193,35 @@ def test_epsilon_qnet_round_robin_matches_jax():
         jevaluate.EvalAgent(name="p", params={"params": params[1]},
                             net=jnets.PPONet(jnets.ModelConfig(**model)),
                             distribution="argmax")]
+    jenv = JEnvConfig(engine=JEngineConfig(height=H, width=W))
+    ref = jevaluate.round_robin(jenv, jagents, games_per_pair=4, seed=9)
+    return dict(board=board_json(ref))
+
+
+def test_epsilon_qnet_round_robin_matches_jax():
+    ref = fixtures.load("eval_epsilon_qnet_round_robin")
+    params = qnet_round_robin_params()
+    model = dict(compute_dtype="float32", **SMALL)
     q = nets.QNet(nets.ModelConfig(**model), board=(H, W), device="cpu")
     q.load_state_dict(params_from_flax(params[0]))
     agents = [evaluate.EvalAgent("q", q, distribution="epsilon",
                                  epsilon=0.2),
               evaluate.EvalAgent("p", port_net(params[1]))]
-    jenv = JEnvConfig(engine=JEngineConfig(height=H, width=W))
     env = EnvConfig(engine=EngineConfig(height=H, width=W))
-    ref = jevaluate.round_robin(jenv, jagents, games_per_pair=4, seed=9)
     got = evaluate.round_robin(env, agents, games_per_pair=4, seed=9)
-    assert dict(got.wins) == dict(ref.wins)
-    assert dict(got.games) == dict(ref.games)
+    want = {k: str(v) for k, v in ref["board"].items()}
+    assert board_json(got)["wins"] == want["wins"]
+    assert board_json(got)["games"] == want["games"]
     assert sum(got.games.values()) == 8 and sum(got.wins.values()) > 0
+
+
+# slow: the JAX match programs, about 160 and 220 s cold
+@pytest.mark.slow
+@pytest.mark.parametrize("name, compute", [
+    ("eval_argmax_round_robin", jax_argmax_round_robin),
+    ("eval_epsilon_qnet_round_robin", jax_epsilon_qnet_round_robin)])
+def test_round_robin_fixture_regenerates(name, compute):
+    fixtures.regenerates(name, compute)
 
 
 def test_unported_kinds_and_render_raise(capsys):
@@ -207,7 +250,7 @@ def test_training_league(tmp_path):
     env = EnvConfig(engine=EngineConfig(height=H, width=W))
     rnd = nets.PPONet(nets.ModelConfig(compute_dtype="float32", **SMALL),
                       board=(H, W), device="cpu").init_flax_(
-        torch.Generator().manual_seed(0xE10))
+        rng.prng_key(0xE10))
     league = TrainingLeague(env, rnd, out_dir=str(tmp_path),
                             games_per_pair=2)
     learner = port_net(board_params(4))

@@ -10,7 +10,11 @@ directory at the first compile, so the cache is reset before the re-key.
 
 The port's plain versions run thousands of small tensor ops.  Each xdist
 worker imports this module, so each sets torch to one thread: one thread
-pool per worker would oversubscribe the CPUs the JAX tests compile on.
+pool per worker would oversubscribe the CPUs the JAX tests compile on;
+``child_env`` does the same for the processes the tests start.  A cold
+run of the suite is bound by XLA compiles, so the re-key also lowers the
+persistent cache's threshold: the workers share compiles of a tenth of a
+second and more, not only those of two seconds and more.
 
 The port itself (drl_tetris_tpu_torch) never imports JAX or the JAX package;
 a subprocess below shows it.
@@ -24,6 +28,7 @@ import sys
 import numpy as np
 
 torch.set_num_threads(1)
+SHARED_COMPILE_S = 0.1
 
 
 def rekey_jax_cache() -> str:
@@ -36,12 +41,26 @@ def rekey_jax_cache() -> str:
     assert "torch" in sys.modules
     compilation_cache.reset_cache()
     drl_tetris_tpu.enable_compilation_cache()
+    # keep the compiles of a tenth of a second and more too: six xdist
+    # workers compile the same small programs (initialisers, resets,
+    # updates), and a cold suite is bound by compile time
+    jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                      SHARED_COMPILE_S)
     return jax.config.jax_compilation_cache_dir
 
 
 rekey_jax_cache()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def child_env(**extra) -> dict:
+    """The environment of a process a test starts: the repo on its path
+    and one intra-op thread, as each xdist worker has (six workers' worth
+    of children with full thread pools starve the CPUs)."""
+    return dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1",
+                MKL_NUM_THREADS="1", **extra)
 
 
 def jax_leaves(state):

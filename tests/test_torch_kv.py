@@ -41,7 +41,7 @@ def port():
     proc = launch_server(p)
     yield p
     proc.kill()
-    proc.wait()
+    proc.wait(timeout=30)
 
 
 def test_server_binary_is_built_from_the_source():

@@ -17,7 +17,9 @@ a small float32 net (``SMALL``) and the same seeded inputs:
   learner first by swapping the roles, which plays JAX's game with the
   other net learning: the same actions and boards, and the learner's own
   values on every tick; ``pool_segment_to_batch`` for both parities
-  within 1e-5 of JAX's;
+  within 1e-5 of JAX's (JAX's rollout is committed,
+  tests/jax_fixtures/pool_rollout.npz; a ``slow`` test runs it again and
+  holds it to the file);
 * a JAX trainer-targets PPOState through the converters and back bit for
   bit, its reference net and countdown into the port's trainer;
 * the PFSP opponent sequence: the port's ``_pick_opponent`` and the pool
@@ -31,7 +33,8 @@ scale.  GRAD_TOL and STAT_TOL are tests/test_torch_ppo.py's.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import assert_state_equal, rekey_jax_cache
+from tests.test_torch_harness import (assert_state_equal, jax_leaves,
+                                      rekey_jax_cache)
 
 rekey_jax_cache()
 
@@ -46,6 +49,7 @@ import optax  # noqa: E402
 import pytest  # noqa: E402
 
 from drl_tetris_tpu.algos import ppo as jppo  # noqa: E402
+from drl_tetris_tpu.algos.rollout import Segment as JSegment  # noqa: E402
 from drl_tetris_tpu.algos.rollout import make_pool_rollout_fn as j_pool_fn  # noqa: E402
 from drl_tetris_tpu.engine.core import EngineConfig as JEngineConfig  # noqa: E402
 from drl_tetris_tpu.env.env import (EnvConfig as JEnvConfig,  # noqa: E402
@@ -65,6 +69,7 @@ from tests.test_torch_nets import SMALL, small_params  # noqa: E402
 from tests.test_torch_ppo import (GRAD_TOL, STAT_TOL,  # noqa: E402
                                   jax_ppo_config, recorder)
 from tests.test_torch_replay import jseg, seg_arrays, tseg  # noqa: E402
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 
 MB, EPOCHS, T_SEG, N_SEG = 32, 2, 12, 8
 N, HORIZON = 8, 8
@@ -167,10 +172,11 @@ def test_trainer_targets_updates(targets_updates):
                for k in first["ref"])
 
 
-@pytest.fixture(scope="module")
-def jax_pool_rollout():
-    """JAX's pool rollout with learner A against opponent B, the opponent
-    first (one compile), and its gumbel draws."""
+def jax_pool_run() -> dict:
+    """JAX's pool rollout with learner A (small_params(4)) against
+    opponent B (small_params(9)), the opponent first (one compile), with
+    its gumbel draws, the env state after it as leaves, the segment and
+    the last values (tests/jax_fixtures/pool_rollout.npz)."""
     params, opp_params = small_params(4), small_params(9)
     jnet = jnets.PPONet(jnets.ModelConfig(compute_dtype="float32", **SMALL))
     jenv = JEnv(JEnvConfig(), N)
@@ -181,8 +187,25 @@ def jax_pool_rollout():
         learner_first=False)
     gumbel = np.stack([np.asarray(jax.random.gumbel(k, (N, 40), jnp.float32))
                        for k in jax.random.split(key, HORIZON)])
-    return dict(a=params, b=opp_params, js=js, jseg=jseg_, jlast=jlast,
-                gumbel=torch.from_numpy(gumbel))
+    return dict(js=jax_leaves(js), jseg=jseg_, jlast=jlast, gumbel=gumbel)
+
+
+# slow: JAX's pool rollout, about 320 s cold
+@pytest.mark.slow
+def test_pool_rollout_fixture_regenerates():
+    fixtures.regenerates("pool_rollout", jax_pool_run)
+
+
+@pytest.fixture(scope="module")
+def jax_pool_rollout():
+    """JAX's pool rollout (the fixture): the segment as JAX's Segment, the
+    gumbel draws as a tensor; and both params."""
+    r = fixtures.load("pool_rollout")
+    r.update(a=small_params(4), b=small_params(9))
+    r["jseg"] = JSegment(**{k: jnp.asarray(v) for k, v in r["jseg"].items()})
+    r["jlast"] = jnp.asarray(r["jlast"])
+    r["gumbel"] = torch.from_numpy(r["gumbel"])
+    return r
 
 
 def port_pool_rollout(r, learner, opponent, learner_first):

@@ -12,10 +12,15 @@ the JAX package's:
   digit (their unrounded values within PROBE_TOL on the same state);
 * the pygame window on SDL's dummy video output: a drawn frame, and a
   match played with ``pygame=True``.
+
+JAX's rendered match is committed (tests/jax_fixtures/render_match.npz,
+tests/torch_jax_fixtures.py); a ``slow`` test plays it again with JAX and
+holds it to the file.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
 from tests.test_torch_harness import rekey_jax_cache, to_torch_state
+from tests import torch_jax_fixtures as fixtures
 
 rekey_jax_cache()
 
@@ -91,18 +96,36 @@ def frames(text):
     return text.split("\x1b[2J\x1b[H")[1:]
 
 
-def test_rendered_match_frames_match_jax(capsys):
+def jax_rendered_match(capsys) -> dict:
+    """JAX's rendered match of two argmax agents from seeded weights: the
+    result and the frames
+    (tests/jax_fixtures/render_match.npz)."""
     params = [board_params(s) for s in (1, 2)]
     jnet = jnets.PPONet(jnets.ModelConfig(compute_dtype="float32", **SMALL))
     jagents = [jevaluate.EvalAgent(name=n, params={"params": p}, net=jnet)
                for n, p in zip("AB", params)]
-    agents = [evaluate.EvalAgent(name=n, net=port_net(p))
-              for n, p in zip("AB", params)]
-    env = EnvConfig(engine=EngineConfig(height=H, width=W))
     jenv = JEnvConfig(engine=JEngineConfig(height=H, width=W))
-    ref_result = jevaluate.play_match(jenv, tuple(jagents), n_games=1,
-                                      seed=2, render=True)
-    ref = frames(capsys.readouterr().out)
+    capsys.readouterr()
+    result = jevaluate.play_match(jenv, tuple(jagents), n_games=1, seed=2,
+                                  render=True)
+    return dict(result=np.asarray(result),
+                frames=frames(capsys.readouterr().out))
+
+
+# slow: a JAX match program, about 125 s cold
+@pytest.mark.slow
+def test_rendered_match_fixture_regenerates(capsys):
+    fixtures.regenerates("render_match", lambda: jax_rendered_match(capsys))
+
+
+def test_rendered_match_frames_match_jax(capsys):
+    want = fixtures.load("render_match")
+    agents = [evaluate.EvalAgent(name=n, net=port_net(p))
+              for n, p in zip("AB", [board_params(s) for s in (1, 2)])]
+    env = EnvConfig(engine=EngineConfig(height=H, width=W))
+    ref_result = tuple(int(x) for x in want["result"])
+    ref = [str(f) for f in want["frames"]]
+    capsys.readouterr()
     result = evaluate.play_match(env, tuple(agents), n_games=1, seed=2,
                                  render=True)
     got = frames(capsys.readouterr().out)

@@ -6,7 +6,7 @@ package's on the same numpy-seeded inputs:
   M - k): every row, priority, cursor and size equal.
 * ``replay_sample`` in both modes over priorities with ties, with JAX's
   gumbel draws injected: the sampled set equal, the IS weights within
-  1e-6; the key-following draw (``jax_gumbel``) within 1e-6 of
+  1e-6; the key-following draw (``rng.gumbel``) within 1e-6 of
   ``jax.random.gumbel`` and picking the same set.
 * ``replay_gather_windows`` and ``replay_update_prios``: exact.
 * ``kstep_targets`` through a QNet and a PPONet reference, step filter on
@@ -41,6 +41,7 @@ from drl_tetris_tpu.models import nets as jnets  # noqa: E402
 from drl_tetris_tpu_torch.algos import replay  # noqa: E402
 from drl_tetris_tpu_torch.algos import rollout  # noqa: E402
 from drl_tetris_tpu_torch.algos import value_estimator as ve  # noqa: E402
+from drl_tetris_tpu_torch.engine import rng  # noqa: E402
 from drl_tetris_tpu_torch.engine.core import EngineConfig  # noqa: E402
 from drl_tetris_tpu_torch.models import nets  # noqa: E402
 from drl_tetris_tpu_torch.models.convert import params_from_flax  # noqa: E402
@@ -147,7 +148,7 @@ def test_sample_matches_jax(mode):
                   - jiw[order]).max() < 1e-6
     assert (idx < st.size).all() and len(set(idx.tolist())) == n
     # the key-following draw: JAX's bits, the logs within an ulp or so
-    assert np.abs(replay.jax_gumbel(tk, M).numpy() - g).max() < 1e-6
+    assert np.abs(rng.gumbel(tk, (M,)).numpy() - g).max() < 1e-6
     idx2, iw2 = replay.replay_sample(cfg, st, n, alpha, beta, tk)
     assert set(idx2.tolist()) == set(jidx.tolist())
 

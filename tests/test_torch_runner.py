@@ -70,7 +70,7 @@ def port():
     proc = launch_server(p)
     yield p
     proc.kill()
-    proc.wait()
+    proc.wait(timeout=30)
 
 
 def published_equal(worker, trainer):

@@ -13,6 +13,10 @@ nets (2 layers of 8 filters), 4 games x 8 ticks:
   the stats within STAT_TOL relative, the compressors within COMP_TOL,
   the parameters within Adam's bound 2 x lr x steps + 1e-6
   (tests/test_torch_ppo.py says why), and the key chains equal after.
+
+JAX's packets and update are committed (tests/jax_fixtures/runner_*.npz,
+tests/torch_jax_fixtures.py); a ``slow`` test runs JAX's runners again and
+holds them to the files.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
@@ -42,6 +46,7 @@ from tests.test_torch_ppo import COMP_TOL, STAT_TOL, relerr  # noqa: E402
 from tests.test_torch_runner import (HORIZON, N, PRESETS, run_cfg,  # noqa: E402
                                      settings)
 from tests.test_torch_sixten import jvnet_params  # noqa: E402
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 
 NET_TOL = 1e-5
 
@@ -52,7 +57,7 @@ def port():
     proc = launch_server(p)
     yield p
     proc.kill()
-    proc.wait()
+    proc.wait(timeout=30)
 
 
 def jax_fw(flavour, **extra):
@@ -96,81 +101,124 @@ def assert_fields_close(jfields, fields, where):
             assert (a == b).all(), (where, k)
 
 
+def jax_replay_packet(port, flavour) -> dict:
+    """The JAX replay worker's first packet (epsilon 0.3) from seeded
+    params (tests/jax_fixtures/runner_FLAVOUR.npz)."""
+    jfw = jax_fw(flavour, **REPLAY_EXTRA)
+    jpacket, _ = jax_worker_packet(port, flavour, jfw,
+                                   replay_params(flavour), f"j-{flavour}")
+    return dict(segment=jpacket["segment"]._asdict())
+
+
+def replay_params(flavour):
+    return (small_params(9) if flavour == "dqn"
+            else jvnet_params(jax_fw(flavour, **REPLAY_EXTRA).model, 9))
+
+
+REPLAY_EXTRA = dict(train_distribution="epsilon", epsilon=0.3)
+
+
 @pytest.mark.parametrize("flavour", ["dqn", "sixten"])
 def test_replay_worker_packet_matches_jax(port, flavour):
-    extra = dict(train_distribution="epsilon", epsilon=0.3)
-    jfw = jax_fw(flavour, **extra)
-    fw = presets.load(PRESETS[flavour], settings(flavour, **extra))
-    params = (small_params(9) if flavour == "dqn"
-              else jvnet_params(jfw.model, 9))
-    jpacket, _ = jax_worker_packet(port, flavour, jfw, params, f"j-{flavour}")
-    w = port_worker(port, flavour, fw, params, f"t-{flavour}",
-                    params_from_flax)
+    ref = fixtures.load(f"runner_{flavour}")
+    fw = presets.load(PRESETS[flavour], settings(flavour, **REPLAY_EXTRA))
+    w = port_worker(port, flavour, fw, replay_params(flavour),
+                    f"t-{flavour}", params_from_flax)
     packet = w.collect(N * HORIZON)
-    assert_fields_close(jpacket["segment"]._asdict(), packet["segment"],
-                        flavour)
+    assert_fields_close(ref["segment"], packet["segment"], flavour)
     assert len(np.unique(packet["segment"]["trans"])) > 1
+
+
+LR, EPOCHS = 1e-4, 2
+
+
+def with_lr_epochs(cfg):
+    return dataclasses.replace(cfg, ppo=dataclasses.replace(
+        cfg.ppo, lr=LR, n_train_epochs=EPOCHS))
+
+
+def jax_ppo_run(port) -> dict:
+    """The JAX ppo worker's first packet from small_params(3), the gumbel
+    draws of its rollout key, and the JAX PPO trainer core's first update
+    on that packet: its initial params, stats, compressors, params and key
+    after (tests/jax_fixtures/runner_ppo.npz)."""
+    jfw = jax_fw("ppo")
+    params = small_params(3)
+    jpacket, kroll = jax_worker_packet(port, "ppo", jfw, params, "j-ppo")
+    W = jfw.env.engine.width
+    gumbel = np.stack([np.asarray(jax.random.gumbel(
+        k, (N, 4 * W), jnp.float32)) for k in jax.random.split(
+            kroll, HORIZON)])
+    jcore = jrunner.make_trainer_core(with_lr_epochs(run_cfg(
+        jfw, jstandalone)), "ppo", None, N * HORIZON)
+    init = jax.tree.map(np.asarray, jcore.state.params["params"])
+    jcore.add(jpacket)
+    stats = jcore.maybe_train()
+    core = dict(init=init, stats=stats, comps=[
+        [float(a) for a in c] for c in (jcore.state.adv_comp,
+                                        jcore.state.vloss_comp)],
+        params=jax.tree.map(np.asarray, jcore.state.params["params"]),
+        key=np.asarray(jax.random.key_data(jcore.key)))
+    return dict(gumbel=gumbel, batch=jpacket["batch"]._asdict(),
+                stats=jpacket["stats"], core=core)
+
+
+# slow: a JAX worker's rollout each, 110-150 s cold
+@pytest.mark.slow
+@pytest.mark.parametrize("flavour", ["dqn", "sixten", "ppo"])
+def test_runner_fixture_regenerates(port, flavour):
+    fixtures.regenerates(f"runner_{flavour}", lambda: (
+        jax_ppo_run(port) if flavour == "ppo"
+        else jax_replay_packet(port, flavour)))
 
 
 @pytest.fixture(scope="module")
 def ppo_packets(port):
-    """The JAX ppo worker's first packet and the port's with JAX's gumbel
-    draws, from the same weights and seed."""
-    jfw = jax_fw("ppo")
+    """JAX's run (the fixture) and the port ppo worker's first packet with
+    JAX's gumbel draws, from the same weights and seed."""
+    ref = fixtures.load("runner_ppo")
     fw = presets.load(PRESETS["ppo"], settings("ppo"))
-    params = small_params(3)
-    jpacket, kroll = jax_worker_packet(port, "ppo", jfw, params, "j-ppo")
-    W = fw.env.engine.width
-    gumbel = torch.from_numpy(np.stack([np.asarray(jax.random.gumbel(
-        k, (N, 4 * W), jnp.float32)) for k in jax.random.split(
-            kroll, HORIZON)]))
-    w = port_worker(port, "ppo", fw, params, "t-ppo", params_from_flax)
-    return jfw, fw, jpacket, w.collect(N * HORIZON, gumbel=gumbel)
+    w = port_worker(port, "ppo", fw, small_params(3), "t-ppo",
+                    params_from_flax)
+    return fw, ref, w.collect(N * HORIZON,
+                              gumbel=torch.from_numpy(ref["gumbel"]))
 
 
 def test_ppo_worker_batch_matches_jax(ppo_packets):
-    _, _, jpacket, packet = ppo_packets
-    assert_fields_close(jpacket["batch"]._asdict(), packet["batch"], "ppo")
-    assert set(jpacket["stats"]) == set(packet["stats"])
-    for k, v in jpacket["stats"].items():
+    _, ref, packet = ppo_packets
+    assert_fields_close(ref["batch"], packet["batch"], "ppo")
+    assert set(ref["stats"]) == set(packet["stats"])
+    for k, v in ref["stats"].items():
+        v = float(v)
         assert abs(v - packet["stats"][k]) <= NET_TOL * max(1.0, abs(v)), k
 
 
 def test_ppo_trainer_core_first_update_matches_jax(ppo_packets):
-    jfw, fw, jpacket, _ = ppo_packets
-    lr, epochs = 1e-4, 2
-    jcfg = run_cfg(jfw, jstandalone)
-    jcfg = dataclasses.replace(jcfg, ppo=dataclasses.replace(
-        jcfg.ppo, lr=lr, n_train_epochs=epochs))
-    cfg = run_cfg(fw)
-    cfg = dataclasses.replace(cfg, ppo=dataclasses.replace(
-        cfg.ppo, lr=lr, n_train_epochs=epochs))
-    jcore = jrunner.make_trainer_core(jcfg, "ppo", None, N * HORIZON)
+    fw, ref, _ = ppo_packets
+    jcore = ref["core"]
+    cfg = with_lr_epochs(run_cfg(fw))
     core = make_trainer_core(cfg, "ppo", None, N * HORIZON, device="cpu")
-    core.net.load_params_(params_from_flax(jax.tree.map(
-        np.asarray, jcore.state.params["params"])))
-    jcore.add(jpacket)
+    core.net.load_params_(params_from_flax(jcore["init"]))
     core.add({"batch": {k: (v.view(np.int32) if v.dtype == np.uint32
                             else v)
-                        for k, v in jpacket["batch"]._asdict().items()}})
-    jstats, stats = jcore.maybe_train(), core.maybe_train()
+                        for k, v in ref["batch"].items()}})
+    stats = core.maybe_train()
+    jstats = {k: float(v) for k, v in jcore["stats"].items()}
     assert set(jstats) == set(stats)
     for k, v in jstats.items():
         if "saturation" in k:
             assert abs(v - stats[k]) <= 1.0 / cfg.ppo.minibatch_size + 1e-6
         else:
             assert relerr(v, stats[k]) < STAT_TOL, (k, v, stats[k])
-    for jc, c in ((jcore.state.adv_comp, core.state.adv_comp),
-                  (jcore.state.vloss_comp, core.state.vloss_comp)):
+    for jc, c in zip(jcore["comps"], (core.state.adv_comp,
+                                      core.state.vloss_comp)):
         for a, b in zip(jc, c):
             assert relerr(float(a), b.item()) < COMP_TOL
-    steps = epochs * (N * HORIZON // cfg.ppo.minibatch_size)
-    tol = 2 * lr * steps + 1e-6
-    jparams = params_from_flax(jax.tree.map(
-        np.asarray, jcore.state.params["params"]))
+    steps = EPOCHS * (N * HORIZON // cfg.ppo.minibatch_size)
+    tol = 2 * LR * steps + 1e-6
+    jparams = params_from_flax(jcore["params"])
     for k, p in core.net.named_parameters():
         err = (p.detach() - jparams[k]).abs().max().item()
         assert err <= tol, (k, err, tol)
     # the key chains stayed together: the next update shuffles alike
-    assert np.array_equal(np.asarray(jax.random.key_data(jcore.key)),
-                          core.key.numpy())
+    assert np.array_equal(jcore["key"], core.key.numpy())

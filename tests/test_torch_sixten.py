@@ -19,11 +19,15 @@ JAX package's, on a small float32 VNet and the 22 x 10 board:
   so that no two successors' values tie; epsilon 0.3, an update in
   each): the key, the env state and the
   replay's rows bit-exact, priorities, parameters and stats as above.
+
+JAX's policies and trainer iterations are committed (tests/jax_fixtures/
+sixten_*.npz, tests/torch_jax_fixtures.py); ``slow`` tests run them again
+with JAX and hold them to the files.
 """
 import torch  # noqa: I001  (first: see test_torch_harness)
 
-from tests.test_torch_harness import (assert_state_equal, rekey_jax_cache,
-                                      to_torch_state)
+from tests.test_torch_harness import (assert_state_equal, jax_leaves,
+                                      rekey_jax_cache, to_torch_state)
 
 rekey_jax_cache()
 
@@ -57,6 +61,7 @@ from tests.test_torch_env_spaces import to_jax_state  # noqa: E402
 from tests.test_torch_nets import make_inputs, randomize  # noqa: E402
 from tests.test_torch_ppo import relerr  # noqa: E402
 from tests.test_torch_replay import jseg, seg_arrays, tseg  # noqa: E402
+from tests import torch_jax_fixtures as fixtures  # noqa: E402
 
 TINY = dict(tower_layers=1, tower_filters=4, val_layers=2, val_filters=4)
 BF16_TOL = 0.05
@@ -163,49 +168,71 @@ def assert_first_step_gradients(jnet, net, params, vecs, viss):
         assert err <= GRAD_TOL * scale, (k, err, scale)
 
 
-@pytest.fixture(scope="module")
-def states():
-    """A JAX and a port env state of N games on crowded boards."""
+def crowded_states(reset_leaves):
+    """The port's env state of N games on crowded boards from JAX's reset
+    (as leaves), and its JAX twin."""
     jenv = JEnv(JEnvConfig(), N)
     tenv = TetrisVectorEnv(EnvConfig(), N, device="cpu")
-    js = jenv.reset(jax.random.PRNGKey(8))
-    ts = checks.crowded(tenv.cfg, to_torch_state(js, tenv.reset(8)), seed=2)
-    return jenv, tenv, to_jax_state(ts, js), ts
+    ts = checks.crowded(tenv.cfg, to_torch_state(reset_leaves,
+                                                 tenv.reset(8)), seed=2)
+    return jenv, tenv, ts
 
 
 DISTS = ("epsilon", "adaptive_epsilon", "argmax", "boltzmann")
+POLICY_KEY = 21
 
 
-@pytest.mark.parametrize("space", ["top_drop", "full"])
-def test_policy_matches_jax(states, space):
-    """Every distribution chooses JAX's action from JAX's key."""
-    jenv, tenv, js, ts = states
+def jax_policy_run(space) -> dict:
+    """JAX's world-model policy under each distribution on crowded boards
+    from its key: JAX's reset as leaves, and each distribution's outputs
+    (tests/jax_fixtures/sixten_policy_SPACE.npz)."""
     kw = dict(compute_dtype="float32", **TINY)
+    js0 = JEnv(JEnvConfig(), N).reset(jax.random.PRNGKey(8))
+    jenv, _, ts = crowded_states(jax_leaves(js0))
+    js = to_jax_state(ts, js0)
     params = jvnet_params(jnets.ModelConfig(**kw), 4)
     jnet = jsixten.VNet(jnets.ModelConfig(**kw))
     jhp = JHParams(epsilon=jnp.float32(0.4), temperature=jnp.float32(1.0),
                    avg_traj_len=jnp.float32(0.8))
-    hp = HParams(epsilon=0.4, temperature=1.0, avg_traj_len=0.8)
-    key = jax.random.PRNGKey(21)
     jpols = [jsixten.make_sixten_policy(jenv, jnet, d, 0.4, space)
              for d in DISTS]
     refs = jax.jit(lambda p, s, k: [pol(p, s, k, jhp)[1:] for pol in jpols]
-                   )({"params": params}, js, key)
-    net = port_vnet(kw, params)
-    tkey = torch.from_numpy(np.asarray(jax.random.key_data(key)).astype(
-        np.int64))
+                   )({"params": params}, js, jax.random.PRNGKey(POLICY_KEY))
+    return dict(reset=jax_leaves(js0), refs=[
+        [np.asarray(a) for a in ref] for ref in refs])
+
+
+@pytest.mark.parametrize("space", ["top_drop", "full"])
+def test_policy_matches_jax(space):
+    """Every distribution chooses JAX's action from JAX's key."""
+    ref = fixtures.load(f"sixten_policy_{space}")
+    _, tenv, ts = crowded_states(ref["reset"])
+    kw = dict(compute_dtype="float32", **TINY)
+    hp = HParams(epsilon=0.4, temperature=1.0, avg_traj_len=0.8)
+    net = port_vnet(kw, jvnet_params(jnets.ModelConfig(**kw), 4))
+    tkey = torch.from_numpy(np.asarray(jax.random.key_data(
+        jax.random.PRNGKey(POLICY_KEY))).astype(np.int64))
     picks = set()
-    for d, ref in zip(DISTS, refs):
+    assert len(ref["refs"]) == len(DISTS)
+    for d, want in zip(DISTS, ref["refs"]):
         got = sixten.make_sixten_policy(tenv, net, d, 0.4, space)(
             ts, tkey, hp)[1:]
-        for a, b in zip(ref, got):
-            a = np.asarray(a)
+        assert len(want) == len(got)
+        for a, b in zip(want, got):
             if a.dtype == np.float32:
                 assert np.abs(a - b.numpy()).max() < 1e-5, d
             else:
                 assert (a == b.numpy()).all(), (d, a, b.numpy())
         picks.add(tuple(got[1].tolist()))
     assert len(picks) > 1          # the distributions do choose differently
+
+
+# slow: JAX's policies under jit, about 100 s cold in the full space
+@pytest.mark.slow
+@pytest.mark.parametrize("space", ["top_drop", "full"])
+def test_policy_fixture_regenerates(space):
+    fixtures.regenerates(f"sixten_policy_{space}",
+                         lambda: jax_policy_run(space))
 
 
 def estimator():
@@ -297,45 +324,75 @@ def test_update_matches_jax(one_update):
     assert moved > 0.5 * cfg.lr
 
 
-def test_two_trainer_iterations_match_jax():
-    kw = dict(compute_dtype="float32", **TINY)
-    rcfg = dict(capacity=200, k_step=3, height=22)
-    common = dict(n_envs=4, horizon=8, train_distribution="epsilon",
-                  epsilon=0.3, seed=5)
-    scfg = sixten.SixtenConfig(n_samples_each_update=16, minibatch_size=8,
-                               estimator=estimator())
+TRAINER_KW = dict(compute_dtype="float32", **TINY)
+TRAINER_REPLAY = dict(capacity=200, k_step=3, height=22)
+TRAINER_COMMON = dict(n_envs=4, horizon=8, train_distribution="epsilon",
+                      epsilon=0.3, seed=5)
+REPLAY_FIELDS = ("occ", "vec", "piece", "rot", "trans", "reward", "done")
+
+
+def trainer_params():
+    # spread-out values: JAX's initial value head (normal(0.01)) leaves the
+    # successors' values within float32 ulps of each other
+    return jvnet_params(jnets.ModelConfig(**TRAINER_KW), 9)
+
+
+def jax_two_iterations() -> dict:
+    """JAX's StandaloneSIXtenTrainer from redrawn weights: its reset as
+    leaves, then after each of two iterations the key, the env
+    state, the replay's rows and priorities, the params and the stats
+    (tests/jax_fixtures/sixten_two_iterations.npz)."""
     jscfg = jsixten.SixtenConfig(n_samples_each_update=16, minibatch_size=8,
                                  estimator=jve.EstimatorConfig(k_step=3))
     jtr = jstandalone.StandaloneSIXtenTrainer(
         jstandalone.StandaloneSIXtenConfig(
-            env=JEnvConfig(), model=jnets.ModelConfig(**kw),
-            replay=jreplay.ReplayConfig(**rcfg), **common), sixten_cfg=jscfg)
+            env=JEnvConfig(), model=jnets.ModelConfig(**TRAINER_KW),
+            replay=jreplay.ReplayConfig(**TRAINER_REPLAY), **TRAINER_COMMON),
+        sixten_cfg=jscfg)
+    jtr.state = jtr.init_opt({"params": trainer_params()})
+    out = dict(reset=jax_leaves(jtr.env_state), its=[])
+    for _ in range(2):
+        stats = jtr.train_iteration()
+        out["its"].append(dict(
+            key=np.asarray(jax.random.key_data(jtr.key)),
+            state=jax_leaves(jtr.env_state),
+            replay={f: np.asarray(getattr(jtr.replay, f))
+                    for f in REPLAY_FIELDS + ("prio",)},
+            params=jax.tree.map(np.asarray, jtr.state.params),
+            stats={k: float(v) for k, v in stats.items()}))
+    return out
+
+
+# slow: JAX's SIXten trainer, about 100 s cold
+@pytest.mark.slow
+def test_trainer_fixture_regenerates():
+    fixtures.regenerates("sixten_two_iterations", jax_two_iterations)
+
+
+def test_two_trainer_iterations_match_jax():
+    ref = fixtures.load("sixten_two_iterations")
+    scfg = sixten.SixtenConfig(n_samples_each_update=16, minibatch_size=8,
+                               estimator=estimator())
     tr = StandaloneSIXtenTrainer(StandaloneSIXtenConfig(
-        env=EnvConfig(), model=ModelConfig(**kw),
-        replay=replay.ReplayConfig(**rcfg), **common), sixten_cfg=scfg,
-        device="cpu")
-    # spread-out values: JAX's initial value head (normal(0.01)) leaves the
-    # successors' values within float32 ulps of each other
-    params = jvnet_params(jnets.ModelConfig(**kw), 9)
-    jtr.state = jtr.init_opt({"params": params})
-    sd = params_from_flax(params)
+        env=EnvConfig(), model=ModelConfig(**TRAINER_KW),
+        replay=replay.ReplayConfig(**TRAINER_REPLAY), **TRAINER_COMMON),
+        sixten_cfg=scfg, device="cpu")
+    sd = params_from_flax(trainer_params())
     tr.net.load_state_dict(sd)
     tr.state.ref_net.load_state_dict(sd)
-    assert_state_equal(jtr.env_state, tr.env_state, "reset")
-    for it in range(2):
-        jstats = jtr.train_iteration()
+    assert_state_equal(ref["reset"], tr.env_state, "reset")
+    assert len(ref["its"]) == 2
+    for it, want in enumerate(ref["its"]):
         stats = tr.train_iteration()
-        assert (np.asarray(jax.random.key_data(jtr.key)) ==
-                tr.key.numpy()).all()
-        assert_state_equal(jtr.env_state, tr.env_state, f"iteration {it}")
-        for f in ("occ", "vec", "piece", "rot", "trans", "reward", "done"):
-            a, b = np.asarray(getattr(jtr.replay, f)), \
-                getattr(tr.replay, f).numpy()
+        assert (want["key"] == tr.key.numpy()).all()
+        assert_state_equal(want["state"], tr.env_state, f"iteration {it}")
+        for f in REPLAY_FIELDS:
+            a, b = want["replay"][f], getattr(tr.replay, f).numpy()
             assert (a == (b.view(np.uint32) if a.dtype == np.uint32
                           else b)).all(), (it, f)
-        assert np.abs(np.asarray(jtr.replay.prio)
+        assert np.abs(want["replay"]["prio"]
                       - tr.replay.prio.numpy()).max() < PRIO_TOL
-        assert_params_close(jtr.state.params, tr.net, scfg.lr, 2 * (it + 1))
-        assert_stats_close(jstats, stats)
+        assert_params_close(want["params"], tr.net, scfg.lr, 2 * (it + 1))
+        assert_stats_close(want["stats"], stats)
     assert set(tr.phase_ms) >= {"masks", "forward", "tick", "replay",
                                 "update"}

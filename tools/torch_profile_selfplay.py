@@ -32,6 +32,7 @@ GAMES, TICKS, MINIBATCHES = 1024, 8, 8
 
 def profile_ticks():
     from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn
+    from drl_tetris_tpu_torch.engine import rng
     from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
     from drl_tetris_tpu_torch.models.convert import seeded_state_dict
     from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
@@ -41,15 +42,15 @@ def profile_ticks():
     net = PPONet(ModelConfig(), device="cuda").eval()
     net.load_state_dict(seeded_state_dict(net, 3))
     rollout = make_rollout_fn(env, net, TICKS)
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    key = rng.prng_key(5, "cuda")
     st = env.reset(1)
-    st, _, _ = rollout(st, gen)                     # warm-up: cuDNN, allocator
+    st, _, _ = rollout(st, key)                     # warm-up: cuDNN, allocator
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rollout(st, gen)
+        rollout(st, key)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     return prof, wall_s, TICKS, "tick"

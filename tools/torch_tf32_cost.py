@@ -71,7 +71,7 @@ def steps_in_turns(tr, n_steps: int):
     rows = n_steps * ppo.minibatch_size
     ticks = -(-rows // tr.cfg.n_envs)
     _, seg, last = make_rollout_fn(tr.env, tr.net, ticks)(tr.env_state,
-                                                           tr.generator)
+                                                           tr.key)
     batch, _ = segment_to_batch(ppo, seg, last)
     batch = Batch(*[a[:rows] for a in batch])
     if batch[0].shape[0] != rows:
