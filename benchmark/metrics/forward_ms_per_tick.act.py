@@ -1,0 +1,13 @@
+"""The stream's time of the traced segment's ``forward`` spans (the net's
+call and its values: 65 a 64-tick segment, the bootstrap's included),
+summed, over its ticks: CUDA events at each span's start and end
+(drl_tetris_tpu_torch/utils/tracing.py)."""
+from benchmark.spans import device_ms_per_tick, traced_summary
+
+
+def read(run):
+    return from_summary(traced_summary(run))
+
+
+def from_summary(summary):
+    return device_ms_per_tick(summary, "forward")

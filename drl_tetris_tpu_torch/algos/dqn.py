@@ -24,7 +24,7 @@ stats once.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +40,7 @@ from drl_tetris_tpu_torch.algos.value_estimator import (EstimatorConfig,
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine.core import EngineConfig
 from drl_tetris_tpu_torch.env.observations import field_grid
+from drl_tetris_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,10 +127,11 @@ def first_step_gradients(engine_cfg: EngineConfig, cfg: DQNConfig, net,
 def make_dqn_update(engine_cfg: EngineConfig, net, cfg: DQNConfig,
                     replay_cfg: ReplayConfig):
     """Returns (init_fn(net) -> DQNState, update_fn(state, replay, key,
-    alpha, beta, gumbel=None, mark=None) -> (state, replay, stats)).
-    ``key`` is a (2,) key on the net's device; ``alpha`` and ``beta`` are
-    the schedules' values for this update; ``mark("targets")``
-    is called once the sample and its targets are made (phase timing)."""
+    alpha, beta, gumbel=None) -> (state, replay, stats)).  ``key`` is a
+    (2,) key on the net's device; ``alpha`` and ``beta`` are the
+    schedules' values for this update.  Spans: ``targets`` (the sample and
+    its targets), then ``update`` (the Q steps, priorities and reference
+    sync)."""
 
     def init_fn(net=net) -> DQNState:
         # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8 outside the sqrt
@@ -138,29 +140,29 @@ def make_dqn_update(engine_cfg: EngineConfig, net, cfg: DQNConfig,
         return DQNState(net=net, ref_net=frozen_copy(net), optimizer=opt)
 
     def update_fn(state: DQNState, replay: ReplayState, key: torch.Tensor,
-                  alpha: float, beta: float, gumbel=None,
-                  mark: Optional[Callable[[str], None]] = None):
-        idx, iw, samples, kp = sample_for_update(
-            engine_cfg, cfg, replay_cfg, state.ref_net, replay, key, alpha,
-            beta, gumbel)
-        if mark is not None:
-            mark("targets")
-        n = cfg.n_samples_each_update
-        prio_buf = torch.zeros(n, dtype=torch.float32, device=iw.device)
-        stats = None
-        for epoch in minibatch_indices(cfg, n, kp):
-            for mi in epoch:
-                mb = {k: v.index_select(0, mi) for k, v in samples.items()}
-                loss, prios, stats = dqn_loss(engine_cfg, cfg, state.net, mb,
-                                              iw.index_select(0, mi))
-                state.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                state.optimizer.step()
-                prio_buf[mi] = prios
-        replay_update_prios(replay, idx, prio_buf)
-        state.update_count += 1
-        if state.update_count % cfg.time_to_reference_update == 0:
-            sync_reference(state)
+                  alpha: float, beta: float, gumbel=None):
+        with tracing.span("targets"):
+            idx, iw, samples, kp = sample_for_update(
+                engine_cfg, cfg, replay_cfg, state.ref_net, replay, key,
+                alpha, beta, gumbel)
+        with tracing.span("update"):
+            n = cfg.n_samples_each_update
+            prio_buf = torch.zeros(n, dtype=torch.float32, device=iw.device)
+            stats = None
+            for epoch in minibatch_indices(cfg, n, kp):
+                for mi in epoch:
+                    mb = {k: v.index_select(0, mi)
+                          for k, v in samples.items()}
+                    loss, prios, stats = dqn_loss(engine_cfg, cfg, state.net,
+                                                  mb, iw.index_select(0, mi))
+                    state.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                    state.optimizer.step()
+                    prio_buf[mi] = prios
+            replay_update_prios(replay, idx, prio_buf)
+            state.update_count += 1
+            if state.update_count % cfg.time_to_reference_update == 0:
+                sync_reference(state)
         return state, replay, stats
 
     return init_fn, update_fn

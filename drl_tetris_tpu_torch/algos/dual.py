@@ -35,6 +35,7 @@ from drl_tetris_tpu_torch.algos.rollout import (HParams, Segment, _finish,
                                                 rollout_gumbel)
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.env.env import EnvState, TetrisVectorEnv
+from drl_tetris_tpu_torch.utils import tracing
 
 
 def make_dual_rollout_fn(env: TetrisVectorEnv, nets: Sequence, horizon: int,
@@ -70,15 +71,17 @@ def make_dual_rollout_fn(env: TetrisVectorEnv, nets: Sequence, horizon: int,
     @torch.no_grad()
     def rollout(env_state: EnvState, key=None, gumbel=None,
                 hp: Optional[HParams] = None):
-        gumbel = rollout_gumbel(key, horizon, shape, distribution, gumbel)
-        keys, last_key = _tick_keys(key, horizon, distribution)
-        ticks = []
-        for k in range(horizon):
-            env_state, seg = _tick(env, acting, env_state,
-                                   None if gumbel is None else gumbel[k],
-                                   keys[k], hp)
-            ticks.append(seg)
-        return _finish(env_state, ticks, acting, gumbel, last_key, hp)
+        with tracing.span("rollout"):
+            gumbel = rollout_gumbel(key, horizon, shape, distribution,
+                                    gumbel)
+            keys, last_key = _tick_keys(key, horizon, distribution)
+            ticks = []
+            for k in range(horizon):
+                env_state, seg = _tick(env, acting, env_state,
+                                       None if gumbel is None else gumbel[k],
+                                       keys[k], hp)
+                ticks.append(seg)
+            return _finish(env_state, ticks, acting, gumbel, last_key, hp)
 
     return rollout
 

@@ -29,6 +29,7 @@ from drl_tetris_tpu_torch.algos import distributions as D
 from drl_tetris_tpu_torch.engine import cuda_tick, rng
 from drl_tetris_tpu_torch.env.env import EnvState, TetrisVectorEnv
 from drl_tetris_tpu_torch.env.observations import Obs
+from drl_tetris_tpu_torch.utils import tracing
 
 
 class HParams(NamedTuple):
@@ -116,37 +117,40 @@ def make_policy_fn(env: TetrisVectorEnv, net, distribution: str = "pi",
                hp: Optional[HParams] = None):
         if hp is None:
             hp = HParams(epsilon=epsilon, temperature=temperature)
-        obs = env.observe(env_state)
-        vec, vis = policy_inputs(obs)
-        scores, v = _values(net(vec, vis))          # (N,4,W,7), (N,7|1)
-        piece = obs.piece[:, 0]
-        n, R, W, P = scores.shape
-        ppi = scores.gather(3, piece.long()[:, None, None, None].expand(
-            n, R, W, 1))[..., 0]                    # (N, 4, W)
-        if gumbel is None and distribution in SAMPLED_DISTRIBUTIONS:
-            gumbel = rng.gumbel(key.to(ppi.device), (n, R * W))
-        if distribution == "pi":
-            (r, t), _ = D.action_distribution(ppi, gumbel)
-        elif distribution == "argmax":
-            (r, t), _ = D.action_argmax(ppi)
-        elif distribution == "epsilon":
-            (r, t), _ = D.action_epsilongreedy(ppi, key, hp.epsilon)
-        elif distribution == "adaptive_epsilon":
-            # epsilon(t) scaled by 1 / avg trajectory length
-            # (sventon_agent.py:87-89), in float32 as JAX computes it
-            atl = hp.avg_traj_len
-            if torch.is_tensor(atl):       # the trainer's device EMA
-                eps = float(np.float32(hp.epsilon)) / torch.clamp(
-                    atl.to(torch.float32), min=1e-6)
+        with tracing.leaf("observe"):
+            obs = env.observe(env_state)
+            vec, vis = policy_inputs(obs)
+        with tracing.leaf("forward"):
+            scores, v = _values(net(vec, vis))      # (N,4,W,7), (N,7|1)
+        with tracing.leaf("sample"):
+            piece = obs.piece[:, 0]
+            n, R, W, P = scores.shape
+            ppi = scores.gather(3, piece.long()[:, None, None, None].expand(
+                n, R, W, 1))[..., 0]                # (N, 4, W)
+            if gumbel is None and distribution in SAMPLED_DISTRIBUTIONS:
+                gumbel = rng.gumbel(key.to(ppi.device), (n, R * W))
+            if distribution == "pi":
+                (r, t), _ = D.action_distribution(ppi, gumbel)
+            elif distribution == "argmax":
+                (r, t), _ = D.action_argmax(ppi)
+            elif distribution == "epsilon":
+                (r, t), _ = D.action_epsilongreedy(ppi, key, hp.epsilon)
+            elif distribution == "adaptive_epsilon":
+                # epsilon(t) scaled by 1 / avg trajectory length
+                # (sventon_agent.py:87-89), in float32 as JAX computes it
+                atl = hp.avg_traj_len
+                if torch.is_tensor(atl):       # the trainer's device EMA
+                    eps = float(np.float32(hp.epsilon)) / torch.clamp(
+                        atl.to(torch.float32), min=1e-6)
+                else:
+                    eps = np.float32(hp.epsilon) / np.maximum(
+                        np.float32(atl), np.float32(1e-6))
+                (r, t), _ = D.action_epsilongreedy(ppi, key, eps)
             else:
-                eps = np.float32(hp.epsilon) / np.maximum(
-                    np.float32(atl), np.float32(1e-6))
-            (r, t), _ = D.action_epsilongreedy(ppi, key, eps)
-        else:
-            (r, t), _ = D.action_pareto(ppi, hp.temperature, gumbel)
-        idx = torch.arange(n, device=ppi.device)
-        prob = ppi[idx, r, t]
-        v_piece, v_mean = _piece_values(v, piece)
+                (r, t), _ = D.action_pareto(ppi, hp.temperature, gumbel)
+            idx = torch.arange(n, device=ppi.device)
+            prob = ppi[idx, r, t]
+            v_piece, v_mean = _piece_values(v, piece)
         return (obs, piece, r.to(torch.int32), t.to(torch.int32), prob,
                 v_piece, v_mean)
 
@@ -191,13 +195,15 @@ def _tick(env, policy, env_state, gumbel, key, hp, values=None):
     """One acting tick: (env_state', Segment of the tick).  ``values``,
     when given, recomputes v(s|piece), v(s) from the observation (the
     learner's values on an opponent's tick)."""
-    player = env_state.current_player
-    obs, piece, r, t, prob, v_piece, v_mean = policy(
-        env_state, gumbel, key, hp)
-    if values is not None:
-        v_piece, v_mean = values(obs, piece)
-    occ = _perspective_occ(env_state, player)
-    env_state, reward, done = env.step(env_state, r, t)
+    with tracing.span("tick"):
+        player = env_state.current_player
+        obs, piece, r, t, prob, v_piece, v_mean = policy(
+            env_state, gumbel, key, hp)
+        if values is not None:
+            v_piece, v_mean = values(obs, piece)
+        with tracing.leaf("env_step"):
+            occ = _perspective_occ(env_state, player)
+            env_state, reward, done = env.step(env_state, r, t)
     return env_state, Segment(occ=occ, vec=obs.vec, piece=piece, rot=r,
                               trans=t, prob=prob, v_piece=v_piece,
                               v_mean=v_mean, reward=reward, done=done,
@@ -228,15 +234,17 @@ def make_rollout_fn(env: TetrisVectorEnv, net, horizon: int,
     @torch.no_grad()
     def rollout(env_state: EnvState, key=None, gumbel=None,
                 hp: Optional[HParams] = None):
-        gumbel = rollout_gumbel(key, horizon, shape, distribution, gumbel)
-        keys, last_key = _tick_keys(key, horizon, distribution)
-        ticks = []
-        for k in range(horizon):
-            env_state, seg = _tick(env, policy, env_state,
-                                   None if gumbel is None else gumbel[k],
-                                   keys[k], hp)
-            ticks.append(seg)
-        return _finish(env_state, ticks, policy, gumbel, last_key, hp)
+        with tracing.span("rollout"):
+            gumbel = rollout_gumbel(key, horizon, shape, distribution,
+                                    gumbel)
+            keys, last_key = _tick_keys(key, horizon, distribution)
+            ticks = []
+            for k in range(horizon):
+                env_state, seg = _tick(env, policy, env_state,
+                                       None if gumbel is None else gumbel[k],
+                                       keys[k], hp)
+                ticks.append(seg)
+            return _finish(env_state, ticks, policy, gumbel, last_key, hp)
 
     return rollout
 
@@ -257,9 +265,10 @@ def make_pool_rollout_fn(env: TetrisVectorEnv, net, horizon: int,
     policy = make_policy_fn(env, net, distribution, **policy_kwargs)
 
     def learner_values(obs, piece):
-        vec, vis = policy_inputs(obs)
-        _, v = _values(net(vec, vis))
-        return _piece_values(v, piece)
+        with tracing.leaf("forward"):
+            vec, vis = policy_inputs(obs)
+            _, v = _values(net(vec, vis))
+            return _piece_values(v, piece)
 
     shape = (env.n_games, action_size(net))
 
@@ -269,16 +278,18 @@ def make_pool_rollout_fn(env: TetrisVectorEnv, net, horizon: int,
         opponent = make_policy_fn(env, opp_net, distribution,
                                   **policy_kwargs)
         seats = (policy, opponent) if learner_first else (opponent, policy)
-        gumbel = rollout_gumbel(key, horizon, shape, distribution, gumbel)
-        keys, last_key = _tick_keys(key, horizon, distribution)
-        ticks = []
-        for k in range(horizon):
-            acting = seats[k % 2]
-            env_state, seg = _tick(
-                env, acting, env_state,
-                None if gumbel is None else gumbel[k], keys[k], hp,
-                values=None if acting is policy else learner_values)
-            ticks.append(seg)
-        return _finish(env_state, ticks, policy, gumbel, last_key, hp)
+        with tracing.span("rollout"):
+            gumbel = rollout_gumbel(key, horizon, shape, distribution,
+                                    gumbel)
+            keys, last_key = _tick_keys(key, horizon, distribution)
+            ticks = []
+            for k in range(horizon):
+                acting = seats[k % 2]
+                env_state, seg = _tick(
+                    env, acting, env_state,
+                    None if gumbel is None else gumbel[k], keys[k], hp,
+                    values=None if acting is policy else learner_values)
+                ticks.append(seg)
+            return _finish(env_state, ticks, policy, gumbel, last_key, hp)
 
     return rollout

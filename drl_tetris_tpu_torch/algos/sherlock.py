@@ -19,7 +19,7 @@ top-drop grid (4, W) or the full top-drop and finesse pose grid
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
@@ -39,6 +39,7 @@ from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 from drl_tetris_tpu_torch.models.nets import (VEC_DIM, ModelConfig,
                                               ResidualBlock, SventonNet,
                                               apply_visual_pad)
+from drl_tetris_tpu_torch.utils import tracing
 
 DISTRIBUTIONS = ("argmax", "pi", "boltzmann", "epsilon")
 
@@ -145,26 +146,27 @@ def action_probabilities(phi_p, deltas, mask):
     return scores / total.reshape((-1,) + extra)
 
 
-def sherlock_candidate_probs(cfg: EngineConfig, net, obs, env_state,
-                             full: bool, mark=None):
-    """The phi.delta probability of every legal placement of the acting
-    piece: (p, mask, deltas, piece, v_piece, v_mean), p and mask (N, 4, W
-    [, H])."""
-    piece = obs.piece[:, 0]
+def candidate_deltas(cfg: EngineConfig, obs, env_state, full: bool):
+    """(mask, deltas): the acting piece's legal placements and the cells
+    each fills, (N, 4, W [, H]) and (N, 4, W [, H], H, W)."""
     p = env_state.current_player
     ps = env_state.engine.players
     fn = pose_deltas if full else placement_deltas
-    mask, deltas = fn(cfg, take_player(ps.occ, p), piece,
-                      take_player(ps.rot, p))
-    if mark is not None:
-        mark("masks")
+    return fn(cfg, take_player(ps.occ, p), obs.piece[:, 0],
+              take_player(ps.rot, p))
+
+
+def candidate_probs(net, obs, mask, deltas):
+    """(p, piece, v_piece, v_mean): the net's phi.delta probability of
+    each candidate, p shaped as ``mask``."""
+    piece = obs.piece[:, 0]
     vec, vis = policy_inputs(obs)
     phi, v = net(vec, vis)                       # (N, H, W, P), (N, P)
     idx = torch.arange(phi.shape[0], device=phi.device)
     phi_p = phi[idx, :, :, piece.long()]
     probs = action_probabilities(phi_p, deltas, mask)
     v_piece = v[idx, piece.long()] if v.shape[-1] > 1 else v[:, 0]
-    return probs, mask, deltas, piece, v_piece, v.mean(-1)
+    return probs, piece, v_piece, v.mean(-1)
 
 
 _SPAWN = {}
@@ -199,35 +201,38 @@ def make_sherlock_policy(env, net: SherlockNet, distribution: str = "argmax",
     prob, v_piece, v_mean) for env.step_pose.  "argmax" takes the most
     probable placement, "pi"/"boltzmann" sample it, "epsilon" explores
     uniformly over the legal ones with probability epsilon (1.0: the
-    league's random anchor); the draws follow JAX's key."""
+    league's random anchor); the draws follow JAX's key.  Spans:
+    ``masks`` (the observation and the legal placements' cells),
+    ``forward`` (the net, the probabilities and the choice)."""
     if distribution not in DISTRIBUTIONS:
         raise ValueError(distribution)
     cfg = env.cfg.engine
     full = action_space == "full"
 
     @torch.no_grad()
-    def policy(env_state, key=None, hp=None, mark=None):
-        obs = env.observe(env_state)
-        p, mask, _, piece, v_piece, v_mean = sherlock_candidate_probs(
-            cfg, net, obs, env_state, full, mark)
-        n = p.shape[0]
-        pf, mf = p.reshape(n, -1), mask.reshape(n, -1)
-        greedy = torch.argmax(torch.where(mf, pf, -1.0), dim=-1)
-        if distribution in ("pi", "boltzmann"):
-            logits = torch.where(mf, torch.log(torch.clamp(pf, min=1e-20)),
-                                 -torch.inf)
-            a_idx = categorical(key, logits)
-        elif distribution == "epsilon":
-            ke, ku = rng.split(key.to(pf.device))
-            uni = categorical(ku, torch.where(mf, 0.0, -torch.inf))
-            explore = rng.uniform01(ke, (n,)) < torch.tensor(
-                epsilon, dtype=torch.float32)
-            a_idx = torch.where(explore, uni, greedy)
-        else:
-            a_idx = greedy
-        prob = pf[torch.arange(n, device=pf.device), a_idx]
-        if mark is not None:
-            mark("forward")
+    def policy(env_state, key=None, hp=None):
+        with tracing.leaf("masks"):
+            obs = env.observe(env_state)
+            mask, deltas = candidate_deltas(cfg, obs, env_state, full)
+        with tracing.leaf("forward"):
+            p, piece, v_piece, v_mean = candidate_probs(net, obs, mask,
+                                                        deltas)
+            n = p.shape[0]
+            pf, mf = p.reshape(n, -1), mask.reshape(n, -1)
+            greedy = torch.argmax(torch.where(mf, pf, -1.0), dim=-1)
+            if distribution in ("pi", "boltzmann"):
+                logits = torch.where(
+                    mf, torch.log(torch.clamp(pf, min=1e-20)), -torch.inf)
+                a_idx = categorical(key, logits)
+            elif distribution == "epsilon":
+                ke, ku = rng.split(key.to(pf.device))
+                uni = categorical(ku, torch.where(mf, 0.0, -torch.inf))
+                explore = rng.uniform01(ke, (n,)) < torch.tensor(
+                    epsilon, dtype=torch.float32)
+                a_idx = torch.where(explore, uni, greedy)
+            else:
+                a_idx = greedy
+            prob = pf[torch.arange(n, device=pf.device), a_idx]
         return (obs, piece, *_action(cfg, a_idx, piece, full), prob,
                 v_piece, v_mean)
 
@@ -251,51 +256,59 @@ def make_sherlock_rollout(env, net: SherlockNet, horizon: int,
                           action_space: str = "top_drop"):
     """Self-play with the phi.delta distribution sampled (the logits are
     log max(p, 1e-20) over every candidate, as in JAX): rollout(env_state,
-    key, mark=None) -> (env_state', SherlockSegment, v_last).  Placements
+    key) -> (env_state', SherlockSegment, v_last).  Placements
     step with env.step_place (rotations from the spawn rotation) or, with
     "full", env.step_pose; the keys are JAX's (split(key, horizon) per
-    tick, fold_in(key, horizon) for the bootstrap)."""
+    tick, fold_in(key, horizon) for the bootstrap).  Spans, each tick:
+    ``masks`` (the observation and the legal placements' cells),
+    ``forward`` (the net, the probabilities and the draw), ``tick`` (the
+    chosen action and the env step); the segment's stack and the
+    bootstrap are one more ``forward``."""
     cfg = env.cfg.engine
     H, W = cfg.height, cfg.width
     full = action_space == "full"
 
-    def acting(env_state, key, mark=None):
+    def candidates(env_state):
         obs = env.observe(env_state)
-        p, mask, deltas, piece, v_piece, v_mean = sherlock_candidate_probs(
-            cfg, net, obs, env_state, full, mark)
-        n = p.shape[0]
-        idx = torch.arange(n, device=p.device)
-        pf = p.reshape(n, -1)
+        return (obs,) + candidate_deltas(cfg, obs, env_state, full)
+
+    def draw(key, obs, mask, deltas):
+        """The net, the candidates' probabilities and the draw."""
+        p, piece, v_piece, v_mean = candidate_probs(net, obs, mask, deltas)
+        pf = p.reshape(p.shape[0], -1)
         a_idx = categorical(key, torch.log(torch.clamp(pf, min=1e-20)))
-        flat = deltas.reshape(n, -1, H, W)
-        if mark is not None:
-            mark("forward")
-        return (obs, piece, _action(cfg, a_idx, piece, full), pf[idx, a_idx],
-                flat[idx, a_idx], flat.sum(1), v_piece, v_mean)
+        return pf, a_idx, piece, v_piece, v_mean
 
     @torch.no_grad()
-    def rollout(env_state, key, mark: Optional[Callable[[str], None]] = None):
+    def rollout(env_state, key):
         keys, last_key = _tick_keys(key, horizon, "epsilon")
         ticks = []
         for t in range(horizon):
             player = env_state.current_player
-            (obs, piece, act, prob, delta, delta_sum, v_piece,
-             v_mean) = acting(env_state, keys[t], mark)
-            occ = _perspective_occ(env_state, player)
-            if full:
-                env_state, reward, done = env.step_pose(env_state, *act)
-            else:
-                env_state, reward, done = env.step_place(env_state, *act)
-            if mark is not None:
-                mark("tick")
+            with tracing.leaf("masks"):
+                obs, mask, deltas = candidates(env_state)
+            with tracing.leaf("forward"):
+                pf, a_idx, piece, v_piece, v_mean = draw(keys[t], obs, mask,
+                                                         deltas)
+            with tracing.leaf("tick"):
+                n = pf.shape[0]
+                idx = torch.arange(n, device=pf.device)
+                flat = deltas.reshape(n, -1, H, W)
+                act = _action(cfg, a_idx, piece, full)
+                prob, delta, delta_sum = (pf[idx, a_idx], flat[idx, a_idx],
+                                          flat.sum(1))
+                occ = _perspective_occ(env_state, player)
+                if full:
+                    env_state, reward, done = env.step_pose(env_state, *act)
+                else:
+                    env_state, reward, done = env.step_place(env_state, *act)
             ticks.append(SherlockSegment(
                 occ=occ, vec=obs.vec, piece=piece, delta=delta,
                 delta_sum=delta_sum, prob=prob, v_piece=v_piece,
                 v_mean=v_mean, reward=reward, done=done))
-        seg = SherlockSegment(*[torch.stack(xs) for xs in zip(*ticks)])
-        v_last = acting(env_state, last_key)[-2]
-        if mark is not None:
-            mark("forward")
+        with tracing.leaf("forward"):
+            seg = SherlockSegment(*[torch.stack(xs) for xs in zip(*ticks)])
+            v_last = draw(last_key, *candidates(env_state))[3]
         return env_state, seg, v_last
 
     return rollout

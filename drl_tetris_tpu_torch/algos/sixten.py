@@ -21,7 +21,7 @@ and the explore draw a uniform.  The initial weights are JAX's
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
@@ -46,6 +46,7 @@ from drl_tetris_tpu_torch.env.observations import field_grid
 from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 from drl_tetris_tpu_torch.models.nets import (VEC_DIM, ModelConfig,
                                               ResidualBlock, apply_visual_pad)
+from drl_tetris_tpu_torch.utils import tracing
 
 DISTRIBUTIONS = ("epsilon", "adaptive_epsilon", "argmax", "boltzmann")
 
@@ -129,39 +130,32 @@ def _explore_eps(distribution: str, hp: HParams):
     return eps
 
 
-def make_sixten_policy(env: TetrisVectorEnv, net: VNet,
-                       distribution: str = "epsilon", epsilon: float = 0.05,
-                       action_space: str = "top_drop"):
-    """Returns policy(env_state, key, hp=None, mark=None) -> (obs, piece,
-    r_rel, x, prob, v_sel, v_mean) for env.step_place, or with
-    action_space "full" (obs, piece, rot, col, y, prob, v_sel, v_mean) for
-    env.step_pose.  Each successor observation replaces the acting
-    player's board by the candidate board and zeroes the next-piece
-    one-hot (not drawn yet); V is read for the piece that acts in the
-    successor (the current next piece).  ``key`` is the tick's (2,) key
-    (unused by argmax); ``mark(name)`` is called after the masks and after
-    the forward and choice (phase timing)."""
+def _sixten_stages(env: TetrisVectorEnv, net: VNet, distribution: str,
+                   epsilon: float, action_space: str):
+    """The policy's two timed stages: masks(env_state) -> (obs, piece,
+    rot, nxt, mask, occ_after), the observation and the legal successor
+    boards; choose(masked, key, hp) -> (choice, prob, v_sel, v_mean), V
+    over the successors and the choice."""
     if distribution not in DISTRIBUTIONS:
         raise ValueError(distribution)
     cfg = env.cfg.engine
-    W, H = cfg.width, cfg.height
-    full = action_space == "full"
+    H = cfg.height
+    board_fn = M.pose_boards if action_space == "full" else M.placement_boards
 
-    @torch.no_grad()
-    def policy(env_state, key=None, hp: Optional[HParams] = None,
-               mark: Optional[Callable[[str], None]] = None):
-        if hp is None:
-            hp = HParams(epsilon=epsilon)
+    def masks(env_state):
         obs = env.observe(env_state)
         p = env_state.current_player
         ps = env_state.engine.players
         occ, garb, piece, rot, nxt = (take_player(a, p) for a in (
             ps.occ, ps.garb, ps.piece, ps.rot, ps.nextpiece))
-        fn = M.pose_boards if full else M.placement_boards
-        mask, occ_after, _ = fn(cfg, occ, garb, piece, rot)
-        if mark is not None:
-            mark("masks")
-        n = p.shape[0]
+        mask, occ_after, _ = board_fn(cfg, occ, garb, piece, rot)
+        return obs, piece, rot, nxt, mask, occ_after
+
+    def choose(masked, key, hp: Optional[HParams]):
+        if hp is None:
+            hp = HParams(epsilon=epsilon)
+        obs, _, _, nxt, mask, occ_after = masked
+        n = mask.shape[0]
         k = mask[0].numel()
         my_grid = field_grid(cfg, occ_after.reshape(n * k, H))
         vec_me = obs.vec[:, 0:1, :].expand(n, k, VEC_DIM).clone()
@@ -185,7 +179,7 @@ def make_sixten_policy(env: TetrisVectorEnv, net: VNet,
         if distribution == "argmax":
             choice = greedy
         else:
-            kexp, kpick = rng.split(key.to(occ.device))
+            kexp, kpick = rng.split(key.to(mask.device))
             if distribution == "boltzmann":
                 choice = categorical(kpick, scores)
             else:
@@ -201,8 +195,36 @@ def make_sixten_policy(env: TetrisVectorEnv, net: VNet,
         prob = torch.where(count > 0, 1.0 / torch.clamp(count, min=1), 1.0
                            ).to(torch.float32)
         v_mean = torch.where(legal, v_mean_next, 0.0).mean(1)
-        if mark is not None:
-            mark("forward")
+        return choice, prob, v_sel, v_mean
+
+    return masks, choose
+
+
+def make_sixten_policy(env: TetrisVectorEnv, net: VNet,
+                       distribution: str = "epsilon", epsilon: float = 0.05,
+                       action_space: str = "top_drop"):
+    """Returns policy(env_state, key, hp=None) -> (obs, piece,
+    r_rel, x, prob, v_sel, v_mean) for env.step_place, or with
+    action_space "full" (obs, piece, rot, col, y, prob, v_sel, v_mean) for
+    env.step_pose.  Each successor observation replaces the acting
+    player's board by the candidate board and zeroes the next-piece
+    one-hot (not drawn yet); V is read for the piece that acts in the
+    successor (the current next piece).  ``key`` is the tick's (2,) key
+    (unused by argmax).  Spans: ``masks`` (the observation and the legal
+    placements), ``forward`` (V over the successors and the choice)."""
+    masks, choose = _sixten_stages(env, net, distribution, epsilon,
+                                   action_space)
+    cfg = env.cfg.engine
+    W, H = cfg.width, cfg.height
+    full = action_space == "full"
+
+    @torch.no_grad()
+    def policy(env_state, key=None, hp: Optional[HParams] = None):
+        with tracing.leaf("masks"):
+            masked = masks(env_state)
+        with tracing.leaf("forward"):
+            choice, prob, v_sel, v_mean = choose(masked, key, hp)
+        obs, piece, rot = masked[:3]
         if full:
             return (obs, piece, (choice // (W * H)).to(torch.int32),
                     ((choice // H) % W).to(torch.int32),
@@ -221,46 +243,47 @@ KEYED = ("epsilon", "adaptive_epsilon", "boltzmann")
 def make_sixten_rollout(env: TetrisVectorEnv, net: VNet, horizon: int,
                         distribution: str = "epsilon", epsilon: float = 0.05,
                         action_space: str = "top_drop"):
-    """Returns rollout(env_state, key, hp=None, mark=None) -> (env_state',
+    """Returns rollout(env_state, key, hp=None) -> (env_state',
     Segment, v_last): ``horizon`` ticks of the world-model policy, each
     stepped with env.step_place (top-drop) or env.step_pose (full), one
     launch of the engine kernel's per-kind entry on the card.  The keys
     are JAX's: split(key, horizon) per tick, fold_in(key, horizon) for the
-    bootstrap.  ``mark`` gets "masks", "forward" and "tick" each tick."""
+    bootstrap.  Spans: the policy's ``masks`` and ``forward``, then
+    ``tick`` (the env step), each tick; the segment's stack and the
+    bootstrap's whole policy call are one more ``forward``."""
     full = action_space == "full"
     policy = make_sixten_policy(env, net, distribution, epsilon,
                                 action_space)
+    masks, choose = _sixten_stages(env, net, distribution, epsilon,
+                                   action_space)
     keyed = "epsilon" if distribution in KEYED else distribution
 
     @torch.no_grad()
-    def rollout(env_state, key=None, hp: Optional[HParams] = None,
-                mark: Optional[Callable[[str], None]] = None):
+    def rollout(env_state, key=None, hp: Optional[HParams] = None):
         keys, last_key = _tick_keys(key, horizon, keyed)
         ticks = []
         for t in range(horizon):
             player = env_state.current_player
             obs, piece, *act, prob, v_sel, v_mean = policy(
-                env_state, keys[t], hp, mark)
-            occ = _perspective_occ(env_state, player)
-            if full:
-                r, c, y = act
-                env_state, reward, done = env.step_pose(env_state, r, c, y)
-                rec_rot, rec_tr = r, c
-            else:
-                r, x = act
-                env_state, reward, done = env.step_place(env_state, r, x)
-                rec_rot, rec_tr = r, torch.clamp(x, min=0)
-            if mark is not None:
-                mark("tick")
+                env_state, keys[t], hp)
+            with tracing.leaf("tick"):
+                occ = _perspective_occ(env_state, player)
+                if full:
+                    r, c, y = act
+                    env_state, reward, done = env.step_pose(env_state, r, c, y)
+                    rec_rot, rec_tr = r, c
+                else:
+                    r, x = act
+                    env_state, reward, done = env.step_place(env_state, r, x)
+                    rec_rot, rec_tr = r, torch.clamp(x, min=0)
             ticks.append(Segment(occ=occ, vec=obs.vec, piece=piece,
                                  rot=rec_rot, trans=rec_tr, prob=prob,
                                  v_piece=v_sel, v_mean=v_mean, reward=reward,
                                  done=done, player=player))
-        seg = Segment(*[torch.stack(xs) for xs in zip(*ticks)])
-        out = policy(env_state, last_key, hp)
-        if mark is not None:
-            mark("forward")
-        return env_state, seg, out[-2]
+        with tracing.leaf("forward"):
+            seg = Segment(*[torch.stack(xs) for xs in zip(*ticks)])
+            v_last = choose(masks(env_state), last_key, hp)[2]
+        return env_state, seg, v_last
 
     return rollout
 
@@ -335,11 +358,10 @@ def sample_for_update(engine_cfg: EngineConfig, cfg: SixtenConfig,
 def make_sixten_update(engine_cfg: EngineConfig, net: VNet,
                        cfg: SixtenConfig, replay_cfg: ReplayConfig):
     """Returns (init_fn(net) -> SixtenState, update_fn(state, replay, key,
-    alpha, beta, gumbel=None, mark=None) -> (state, replay, stats)):
-    prioritized k-step V-learning; epochs shuffle with JAX's permutation,
-    each row's new priority is from the last epoch whose minibatches held
-    it, and the reference net syncs every ``time_to_reference_update``
-    updates."""
+    alpha, beta, gumbel=None) -> (state, replay, stats)): prioritized
+    k-step V-learning; epochs shuffle with JAX's permutation, each row's
+    new priority is from the last epoch whose minibatches held it, and the
+    reference net syncs every ``time_to_reference_update`` updates."""
     target_fn = make_target_fn(engine_cfg, None, cfg.estimator)
 
     def init_fn(net=net) -> SixtenState:
@@ -348,12 +370,10 @@ def make_sixten_update(engine_cfg: EngineConfig, net: VNet,
         return SixtenState(net=net, ref_net=frozen_copy(net), optimizer=opt)
 
     def update_fn(state: SixtenState, replay: ReplayState, key, alpha, beta,
-                  gumbel=None, mark: Optional[Callable[[str], None]] = None):
+                  gumbel=None):
         idx, iw, samples, kp = sample_for_update(
             engine_cfg, cfg, replay_cfg, target_fn, state.ref_net, replay,
             key, alpha, beta, gumbel)
-        if mark is not None:
-            mark("targets")
         n = cfg.n_samples_each_update
         prio_buf = torch.zeros(n, dtype=torch.float32, device=iw.device)
         stats = None

@@ -53,6 +53,7 @@ from drl_tetris_tpu_torch.engine import step as S
 from drl_tetris_tpu_torch.engine.core import tree_map
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
 from drl_tetris_tpu_torch.utils import render as R
+from drl_tetris_tpu_torch.utils import tracing
 from drl_tetris_tpu_torch.utils.scoreboard import Scoreboard
 
 CHUNK = 8    # ticks between winner reads (evaluate.py:172-186)
@@ -201,17 +202,20 @@ def play_match(env_cfg: EnvConfig, agents: Tuple[EvalAgent, EvalAgent],
                 if keyed:
                     seat_keys = keys[i]
                     gumbel = [None if g is None else g[i] for g in noise]
-                (r0, t0, y0), (r1, t1, y1) = (
-                    act0(st, seat_keys[0], gumbel[0]),
-                    act1(st, seat_keys[1], gumbel[1]))
-                mine = st.current_player == 0
-                r, t = torch.where(mine, r0, r1), torch.where(mine, t0, t1)
-                if kind0 == kind1 == S.MACRO:
-                    st, _, done = env.step(st, r, t)
-                else:
-                    st, _, done = env.step_kinds(
-                        st, torch.where(mine, kind0, kind1), r, t,
-                        torch.where(mine, y0, y1))
+                with tracing.span("tick"):
+                    (r0, t0, y0), (r1, t1, y1) = (
+                        act0(st, seat_keys[0], gumbel[0]),
+                        act1(st, seat_keys[1], gumbel[1]))
+                    with tracing.leaf("env_step"):
+                        mine = st.current_player == 0
+                        r = torch.where(mine, r0, r1)
+                        t = torch.where(mine, t0, t1)
+                        if kind0 == kind1 == S.MACRO:
+                            st, _, done = env.step(st, r, t)
+                        else:
+                            st, _, done = env.step_kinds(
+                                st, torch.where(mine, kind0, kind1), r, t,
+                                torch.where(mine, y0, y1))
                 done_any |= done
             d, w = torch.stack([done_any.to(torch.int32),
                                 env.get_winner(st).to(torch.int32)]

@@ -62,6 +62,7 @@ from drl_tetris_tpu_torch.runtime.standalone import (StandaloneConfig,
                                                      load_ppo_state,
                                                      ppo_state_dict)
 from drl_tetris_tpu_torch.runtime.training_state import TrainingState
+from drl_tetris_tpu_torch.utils import tracing
 from drl_tetris_tpu_torch.utils.metrics import fetch_stats
 
 def effective_flavour(fw) -> str:
@@ -112,7 +113,8 @@ def make_worker_parts(cfg: StandaloneConfig, env: TetrisVectorEnv,
     uninitialised; ``rollout(env_state, key, hp, gumbel) ->
     (env_state', segment, v_last)``; ``process(segment, v_last,
     env_state)`` is the packet's payload as numpy: on-policy flavours
-    ship processed batches and their GAE stats, replay flavours raw
+    ship processed batches and their GAE stats (spans ``ship.gae``, the
+    batch, and ``ship.copy``, its copy to the host), replay flavours raw
     segments (the trainer owns the replay,
     sventon_agent_trainer_base.py:35-42).  Every rollout takes the
     HParams the runner evaluates per segment against the workers' clock
@@ -132,8 +134,10 @@ def make_worker_parts(cfg: StandaloneConfig, env: TetrisVectorEnv,
         from drl_tetris_tpu_torch.algos.ppo import segment_to_batch
 
         def ship(seg, v, env_state):
-            b, gae_stats = segment_to_batch(cfg.ppo, seg, v)
-            return {"batch": to_host(b), "stats": fetch_stats(gae_stats)}
+            with tracing.leaf("ship.gae"):
+                b, gae_stats = segment_to_batch(cfg.ppo, seg, v)
+            with tracing.leaf("ship.copy"):
+                return {"batch": to_host(b), "stats": fetch_stats(gae_stats)}
         return [net], rollout, ship
     if flavour == "dual":
         from drl_tetris_tpu_torch.algos.dual import (make_dual_rollout_fn,
@@ -144,10 +148,12 @@ def make_worker_parts(cfg: StandaloneConfig, env: TetrisVectorEnv,
         rollout = _sampling(make_dual_rollout_fn(env, nets, cfg.horizon))
 
         def ship(seg, v, env_state):
-            b0, b1, stats = split_dual_segment(ppo_cfg, seg, v)
-            return {"batch0": to_host(b0), "batch1": to_host(b1),
-                    "winners": to_host(env.get_winner(env_state)),
-                    "stats": fetch_stats(stats)}
+            with tracing.leaf("ship.gae"):
+                b0, b1, stats = split_dual_segment(ppo_cfg, seg, v)
+            with tracing.leaf("ship.copy"):
+                return {"batch0": to_host(b0), "batch1": to_host(b1),
+                        "winners": to_host(env.get_winner(env_state)),
+                        "stats": fetch_stats(stats)}
         return nets, rollout, ship
     if flavour == "dqn":
         net = QNet(cfg.model, board=board, full_network=True, device=dev)

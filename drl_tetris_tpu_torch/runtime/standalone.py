@@ -45,6 +45,12 @@ rollout key chain is JAX's (``key, kroll, kupd = split(key, 3)``): the
 epsilon draws and pareto's gumbel noise follow ``kroll`` (or the noise is
 given).  The replay is not saved: a resumed run starts
 it empty, as the JAX CLI's does.
+
+Each trainer's ``phase_ms`` after an iteration is the time of its
+outermost spans, the phases each docstring names, by name
+(``utils/tracing.Iteration``: the stream's on the card, the host's on the
+CPU); the spans inside them (the rollout's ticks, observe, forward,
+sample, env_step) record only under the profiler.
 """
 from __future__ import annotations
 
@@ -81,6 +87,7 @@ from drl_tetris_tpu_torch.config.parameter import param_eval
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
 from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet, QNet
+from drl_tetris_tpu_torch.utils import tracing
 from drl_tetris_tpu_torch.utils.metrics import fetch_stats
 
 
@@ -246,33 +253,6 @@ class StandaloneConfig:
     reward_shaper: Any = None
 
 
-class _PhaseClock:
-    """Times the phases of an iteration without waiting for the device:
-    CUDA events on the card (read after the iteration's one sync), the
-    host clock on the CPU, where every operation has finished on return."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self, name: str):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def spans_ms(self) -> dict:
-        """{phase: ms} between consecutive marks, summed over the spans
-        that end in the same name (the device is synced)."""
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            ms = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-            out[name] = out.get(name, 0.0) + ms
-        return out
-
-
 class StandaloneTrainer:
     def __init__(self, cfg: StandaloneConfig, device=None):
         wca = cfg.ppo.workers_computes_advantages
@@ -382,41 +362,43 @@ class StandaloneTrainer:
         use_pool = (len(self._pool) > 0
                     and self._host_rng.rand() < cfg.pool_prob)
         kroll, kupd = rng.split(kstep)
-        clock = _PhaseClock(self.device)
-        clock.mark("start")
-        if use_pool:
-            idx = self._pick_opponent()
-            learner_first = self._iter % 2 == 0
-            self.env_state, seg, v_last = self.pool_rollout(
-                self._pool[idx], self.env_state, kroll, gumbel,
-                learner_first=learner_first)
-        else:
-            self.env_state, seg, v_last = self.rollout(
-                self.env_state, kroll, gumbel)
-        clock.mark("rollout")
-        if cfg.reward_shaper is not None:
-            seg = seg._replace(reward=cfg.reward_shaper(seg.reward, seg.done))
-        if use_pool:
-            lp = 0 if learner_first else 1
-            batch, batch_stats = pool_segment_to_batch(cfg.ppo, seg, v_last,
-                                                       learner_parity=lp)
-            # the learner's outcomes against this opponent: at a done tick
-            # the acting player's reward is +-1 zero-sum, so the learner's
-            # is the reward on its parity and the negation elsewhere
-            parity = (torch.arange(seg.done.shape[0],
-                                   device=self.device) % 2)[:, None]
-            lrew = torch.where(parity == lp, seg.reward, -seg.reward)
-            batch_stats["pool/wins"] = (seg.done & (lrew > 0)).sum()
-            batch_stats["pool/losses"] = (seg.done & (lrew < 0)).sum()
-        elif cfg.ppo.workers_computes_advantages:
-            batch, batch_stats = segment_to_batch(cfg.ppo, seg, v_last)
-        else:
-            batch, batch_stats = segment_to_windows(cfg.ppo, seg), {}
-        clock.mark("gae")
-        self.state, stats = self.update(self.state, batch, kupd)
-        clock.mark("update")
-        stats.update(batch_stats)
-        stats = fetch_stats(stats)                # the iteration's one sync
+        with tracing.Iteration(self.device) as it:
+            if use_pool:
+                idx = self._pick_opponent()
+                learner_first = self._iter % 2 == 0
+                self.env_state, seg, v_last = self.pool_rollout(
+                    self._pool[idx], self.env_state, kroll, gumbel,
+                    learner_first=learner_first)
+            else:
+                self.env_state, seg, v_last = self.rollout(
+                    self.env_state, kroll, gumbel)
+            with tracing.span("gae"):
+                if cfg.reward_shaper is not None:
+                    seg = seg._replace(reward=cfg.reward_shaper(seg.reward,
+                                                                seg.done))
+                if use_pool:
+                    lp = 0 if learner_first else 1
+                    batch, batch_stats = pool_segment_to_batch(
+                        cfg.ppo, seg, v_last, learner_parity=lp)
+                    # the learner's outcomes against this opponent: at a
+                    # done tick the acting player's reward is +-1 zero-sum,
+                    # so the learner's is the reward on its parity and the
+                    # negation elsewhere
+                    parity = (torch.arange(seg.done.shape[0],
+                                           device=self.device) % 2)[:, None]
+                    lrew = torch.where(parity == lp, seg.reward, -seg.reward)
+                    batch_stats["pool/wins"] = (seg.done & (lrew > 0)).sum()
+                    batch_stats["pool/losses"] = (seg.done
+                                                  & (lrew < 0)).sum()
+                elif cfg.ppo.workers_computes_advantages:
+                    batch, batch_stats = segment_to_batch(cfg.ppo, seg,
+                                                          v_last)
+                else:
+                    batch, batch_stats = segment_to_windows(cfg.ppo, seg), {}
+            with tracing.span("update"):
+                self.state, stats = self.update(self.state, batch, kupd)
+            stats.update(batch_stats)
+            stats = fetch_stats(stats)            # the iteration's one sync
         if use_pool:
             # fold this segment's finished rounds into the opponent's
             # win-rate EMA
@@ -431,7 +413,7 @@ class StandaloneTrainer:
             self._pool_wr.append(0.5)
         self.total_steps += cfg.n_envs * cfg.horizon
         self.stats = stats
-        self.phase_ms = clock.spans_ms()
+        self.phase_ms = it.phase_ms()
         return self.stats
 
     def run(self, n_iterations: int, log_every: int = 1, logger=print):
@@ -576,24 +558,21 @@ class StandaloneDQNTrainer(_RefNetLearner, _DQNActing):
         and update times in ms (the last two once an update ran)."""
         cfg = self.cfg
         self.key, kroll, kupd = rng.split(self.key, 3)
-        clock = _PhaseClock(self.device)
-        clock.mark("start")
-        self.env_state, seg, _ = self.rollout(
-            self.env_state, kroll, gumbel, hp=self._hparams())
-        clock.mark("rollout")
-        self._track_traj_len(seg.done)
-        replay_add_segment(cfg.replay, self.replay, seg, cfg.horizon)
-        clock.mark("replay_add")
-        self.total_steps += cfg.n_envs * cfg.horizon
-        # the trainer waits for enough samples
-        # (sventon_agent_dqn_trainer.py:22)
-        if self.replay.size >= cfg.dqn.n_samples_each_update:
-            self.state, self.replay, stats = self.update(
-                self.state, self.replay, kupd, *self._alpha_beta(),
-                replay_gumbel, clock.mark)
-            clock.mark("update")
-            self.stats = fetch_stats(stats)       # the update's one sync
-        self.phase_ms = clock.spans_ms()
+        with tracing.Iteration(self.device) as it:
+            self.env_state, seg, _ = self.rollout(
+                self.env_state, kroll, gumbel, hp=self._hparams())
+            with tracing.span("replay_add"):
+                self._track_traj_len(seg.done)
+                replay_add_segment(cfg.replay, self.replay, seg, cfg.horizon)
+            self.total_steps += cfg.n_envs * cfg.horizon
+            # the trainer waits for enough samples
+            # (sventon_agent_dqn_trainer.py:22)
+            if self.replay.size >= cfg.dqn.n_samples_each_update:
+                self.state, self.replay, stats = self.update(
+                    self.state, self.replay, kupd, *self._alpha_beta(),
+                    replay_gumbel)
+                self.stats = fetch_stats(stats)   # the update's one sync
+        self.phase_ms = it.phase_ms()
         return self.stats
 
 
@@ -641,12 +620,12 @@ class _DualTrainer:
     def net(self):
         return self.nets[0]
 
-    def _finish_iteration(self, stats: dict, clock: _PhaseClock) -> dict:
+    def _finish_iteration(self, stats: dict, it: tracing.Iteration) -> dict:
         stats = fetch_stats(stats)                # the iteration's one sync
         self.total_steps += self.cfg.n_envs * self.cfg.horizon
         stats["winrate/policy_0"] = float(self.winrate.rate_0)
         self.stats = stats
-        self.phase_ms = clock.spans_ms()
+        self.phase_ms = it.phase_ms()
         return stats
 
 
@@ -691,22 +670,21 @@ class DualPolicyTrainer(_DualTrainer):
         and GAE) and per-policy update times."""
         cfg = self.cfg
         self.key, kroll, ku0, ku1 = rng.split(self.key, 4)
-        clock = _PhaseClock(self.device)
-        clock.mark("start")
-        self.env_state, seg, v_last = self.rollout(
-            self.env_state, kroll, gumbel)
-        clock.mark("rollout")
-        self.winrate.update(self.env.get_winner(self.env_state))
-        b0, b1, _ = split_dual_segment(cfg.ppo, seg, v_last)
-        clock.mark("split")
-        stats = {}
-        for p, (batch, kupd) in enumerate(((b0, ku0), (b1, ku1))):
-            if not self.winrate.should_train(p):
-                continue
-            self.states[p], s = self.update(self.states[p], batch, kupd)
-            stats.update({f"policy_{p}/{k}": v for k, v in s.items()})
-            clock.mark(f"update_{p}")
-        return self._finish_iteration(stats, clock)
+        with tracing.Iteration(self.device) as it:
+            self.env_state, seg, v_last = self.rollout(
+                self.env_state, kroll, gumbel)
+            with tracing.span("split"):
+                self.winrate.update(self.env.get_winner(self.env_state))
+                b0, b1, _ = split_dual_segment(cfg.ppo, seg, v_last)
+            stats = {}
+            for p, (batch, kupd) in enumerate(((b0, ku0), (b1, ku1))):
+                if not self.winrate.should_train(p):
+                    continue
+                with tracing.span(f"update_{p}"):
+                    self.states[p], s = self.update(self.states[p], batch,
+                                                    kupd)
+                stats.update({f"policy_{p}/{k}": v for k, v in s.items()})
+            return self._finish_iteration(stats, it)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -767,34 +745,32 @@ class DualPolicyDQNTrainer(_DQNActing, _DualTrainer):
         targets and update times."""
         cfg = self.cfg
         self.key, kroll, ku0, ku1 = rng.split(self.key, 4)
-        clock = _PhaseClock(self.device)
-        clock.mark("start")
-        self.env_state, seg, _ = self.rollout(
-            self.env_state, kroll, gumbel, hp=self._hparams())
-        clock.mark("rollout")
-        self.winrate.update(self.env.get_winner(self.env_state))
-        self._track_traj_len(seg.done)
-        merged = merge_dual_transitions(seg)
-        for p in (0, 1):
-            replay_add_segment(cfg.replay, self.replays[p],
-                               dual_policy_subsegment(merged, p),
-                               cfg.horizon // 2)
-        clock.mark("replay_add")
-        alpha, beta = self._alpha_beta()
-        stats = {}
-        for p, kupd in ((0, ku0), (1, ku1)):
-            if self.replays[p].size < cfg.dqn.n_samples_each_update:
-                continue
-            # win-rate gate: the policy that is ahead waits
-            if not self.winrate.should_train(p):
-                continue
-            self.states[p], self.replays[p], s = self.update(
-                self.states[p], self.replays[p], kupd, alpha, beta,
-                None if replay_gumbel is None else replay_gumbel[p],
-                lambda name, p=p: clock.mark(f"{name}_{p}"))
-            stats.update({f"policy_{p}/{k}": v for k, v in s.items()})
-            clock.mark(f"update_{p}")
-        return self._finish_iteration(stats, clock)
+        with tracing.Iteration(self.device) as it:
+            self.env_state, seg, _ = self.rollout(
+                self.env_state, kroll, gumbel, hp=self._hparams())
+            with tracing.span("replay_add"):
+                self.winrate.update(self.env.get_winner(self.env_state))
+                self._track_traj_len(seg.done)
+                merged = merge_dual_transitions(seg)
+                for p in (0, 1):
+                    replay_add_segment(cfg.replay, self.replays[p],
+                                       dual_policy_subsegment(merged, p),
+                                       cfg.horizon // 2)
+            alpha, beta = self._alpha_beta()
+            stats = {}
+            for p, kupd in ((0, ku0), (1, ku1)):
+                if self.replays[p].size < cfg.dqn.n_samples_each_update:
+                    continue
+                # win-rate gate: the policy that is ahead waits
+                if not self.winrate.should_train(p):
+                    continue
+                # the update's targets and update spans, as policy p's
+                with tracing.suffix(f"_{p}"):
+                    self.states[p], self.replays[p], s = self.update(
+                        self.states[p], self.replays[p], kupd, alpha, beta,
+                        None if replay_gumbel is None else replay_gumbel[p])
+                stats.update({f"policy_{p}/{k}": v for k, v in s.items()})
+            return self._finish_iteration(stats, it)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -862,21 +838,20 @@ class StandaloneSIXtenTrainer(_RefNetLearner, _DQNActing):
         stats."""
         cfg = self.cfg
         self.key, kroll, kupd = rng.split(self.key, 3)
-        clock = _PhaseClock(self.device)
-        clock.mark("start")
-        self.env_state, seg, _ = self.rollout(
-            self.env_state, kroll, hp=self._hparams(), mark=clock.mark)
-        self._track_traj_len(seg.done)
-        replay_add_segment(cfg.replay, self.replay, seg, cfg.horizon)
-        clock.mark("replay")
-        self.total_steps += cfg.n_envs * cfg.horizon
-        if self.replay.size >= self.scfg.n_samples_each_update:
-            self.state, self.replay, stats = self.update(
-                self.state, self.replay, kupd, *self._alpha_beta(),
-                replay_gumbel)
-            clock.mark("update")
-            self.stats = fetch_stats(stats)
-        self.phase_ms = clock.spans_ms()
+        with tracing.Iteration(self.device) as it:
+            self.env_state, seg, _ = self.rollout(
+                self.env_state, kroll, hp=self._hparams())
+            with tracing.span("replay"):
+                self._track_traj_len(seg.done)
+                replay_add_segment(cfg.replay, self.replay, seg, cfg.horizon)
+            self.total_steps += cfg.n_envs * cfg.horizon
+            if self.replay.size >= self.scfg.n_samples_each_update:
+                with tracing.span("update"):
+                    self.state, self.replay, stats = self.update(
+                        self.state, self.replay, kupd, *self._alpha_beta(),
+                        replay_gumbel)
+                self.stats = fetch_stats(stats)
+        self.phase_ms = it.phase_ms()
         return self.stats
 
 
@@ -954,15 +929,13 @@ class StandaloneSherlockTrainer:
         from drl_tetris_tpu_torch.algos.sherlock import \
             sherlock_segment_to_batch
         self.key, kroll, kupd = rng.split(self.key, 3)
-        clock = _PhaseClock(self.device)
-        clock.mark("start")
-        self.env_state, seg, v_last = self.rollout(self.env_state, kroll,
-                                                   mark=clock.mark)
-        batch, _ = sherlock_segment_to_batch(self.scfg, seg, v_last)
-        clock.mark("gae")
-        self.state, stats = self.update(self.state, batch, kupd)
-        clock.mark("update")
-        self.total_steps += self.cfg.n_envs * self.cfg.horizon
-        self.stats = fetch_stats(stats)
-        self.phase_ms = clock.spans_ms()
+        with tracing.Iteration(self.device) as it:
+            self.env_state, seg, v_last = self.rollout(self.env_state, kroll)
+            with tracing.span("gae"):
+                batch, _ = sherlock_segment_to_batch(self.scfg, seg, v_last)
+            with tracing.span("update"):
+                self.state, stats = self.update(self.state, batch, kupd)
+            self.total_steps += self.cfg.n_envs * self.cfg.horizon
+            self.stats = fetch_stats(stats)
+        self.phase_ms = it.phase_ms()
         return self.stats
