@@ -4,12 +4,14 @@
     python3 chip_smoke.py [--baseline OLD_ENGINE_TICK_CU]
 
 Builds the engine tick kernel (drl_tetris_tpu_torch/csrc/engine_tick.cu)
-with nvcc, holds both of its entries bit for bit against their plain
-PyTorch version on the card, drives the port's paths through the entry
+and the residual layers' epilogue (csrc/net_epilogue.cu) with nvcc, holds
+each entry bit for bit against its plain PyTorch version on the card,
+drives the port's paths through the entry
 points a user calls, and times them:
 
-1. build   nvcc into build/torch_kernels/ (seconds; ptxas registers, stack
-   frame and spills per kernel);
+1. build   nvcc into build/torch_kernels/, the engine kernel and the
+   epilogue kernel (seconds; ptxas registers, stack frame and spills per
+   kernel);
 2. kernel vs plain, every state leaf equal:
    - the T-tick entry with replayed actions (1024 games x 64 ticks),
    - the T-tick entry with in-kernel random actions (block_games 128),
@@ -25,11 +27,21 @@ points a user calls, and times them:
      crowded boards: every game a placement, every game a pose lock, and
      each game its own kind (1024 games), mixed kinds at the limits and
      at the ragged count, dones on every path;
+   - the residual layers' epilogue kernel (phase_epilogue,
+     csrc/net_epilogue.cu) against its plain version bit for bit at the
+     'silver' net's main-path shapes (1024 boards of 24 x 12: 1->64,
+     64->64, 76->64 with elu and without, 154->128 with the pool after it)
+     and at every other layer the registry builds (truncate_add, tanh,
+     float32, no peepholes); the 'silver' PPONet's no-grad forward on the
+     NHWC path against its NCHW path on 1024 boards (31 launches a full
+     forward, 25 a worker-side one); the kernel's time at each main-path
+     shape beside its bytes bound, the plain version's time and F.elu's;
 3. the self-play path (the acting loop of training): make_rollout_fn with
    TetrisVectorEnv(EnvConfig(), 1024) and PPONet(ModelConfig()) at full
    width in bfloat16, weights drawn from a numpy seed, horizon 64, the
    sampling noise drawn from a key (the JAX package's categorical).  The
-   one-tick entry must launch exactly once per tick; the trajectory is
+   one-tick entry must launch exactly once per tick and the epilogue
+   kernel 31 times a forward (65 forwards); the trajectory is
    replayed through the one-tick entry, every tick held against the plain
    engine, and must agree; the net at float32
    agrees with the CPU on a few boards;
@@ -201,8 +213,9 @@ points a user calls, and times them:
    timed in turns with the current one (new, old, old, new) at the same
    shapes.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+(the engine's entries and the epilogue's, each with its launches on the
+paths, time, bound and plain version's time), and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits non-zero without that line; so does a machine with
 no CUDA device.  A copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -349,12 +362,14 @@ def ptxas_report(report):
     return out
 
 
-def build_and_report(source, tag):
+def build_and_report(source, tag, flags=None):
     from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.utils import nvcc
+    flags = cuda_tick.NVCC_FLAGS if flags is None else flags
     t0 = time.perf_counter()
-    path, report = cuda_tick.build(source)
+    path, report = nvcc.build(source, flags)
     secs = time.perf_counter() - t0
-    log(f"[build{tag}] nvcc {' '.join(cuda_tick.NVCC_FLAGS)} {source} -> "
+    log(f"[build{tag}] nvcc {' '.join(flags)} {source} -> "
         f"{path} in {secs:.1f} s")
     regs = ptxas_report(report)
     for name, r in regs.items():
@@ -365,13 +380,19 @@ def build_and_report(source, tag):
 
 
 def phase_build(results, card, baseline=None):
-    """Build the kernel, and the baseline source when given (returns its
-    library)."""
+    """Build the kernels, and the baseline engine source when given
+    (returns its library)."""
     from drl_tetris_tpu_torch.engine import cuda_tick
+    from drl_tetris_tpu_torch.models import epilogue
     _, secs, regs = build_and_report(cuda_tick.SOURCE, "")
     if not regs:
         raise AssertionError("no ptxas report for the kernel")
     results.update(build_s=secs, ptxas=regs)
+    _, secs, regs = build_and_report(epilogue.SOURCE, " epilogue",
+                                     epilogue.NVCC_FLAGS)
+    if not regs:
+        raise AssertionError("no ptxas report for the epilogue kernel")
+    results.update(epilogue_build_s=secs, epilogue_ptxas=regs)
     if baseline:
         path, _, regs = build_and_report(baseline, " baseline")
         results["baseline_ptxas"] = regs
@@ -448,6 +469,70 @@ def phase_kernel_vs_plain(results, card):
     results["events"] = events
 
 
+def phase_epilogue(results, card):
+    """The residual layers' epilogue kernel (csrc/net_epilogue.cu) against
+    its plain version, bit for bit, at the 'silver' net's main-path shapes
+    (1024 boards of 24 x 12) and at every other layer the registry builds;
+    the 'silver' PPONet's no-grad forward on the NHWC path against its
+    NCHW path (the same call with autograd recording) on 1024 boards, full
+    and worker-side; then at each main-path shape the kernel's time, its
+    bytes bound, the plain version's time on NCHW tensors (the eager
+    chain the blocks ran before) and ``F.elu`` alone (the library's
+    yardstick); the kernel reads and writes rows padded to a multiple of
+    8 channels, as on the net's path."""
+    import torch.nn.functional as F
+
+    from drl_tetris_tpu_torch.models import checks
+    from drl_tetris_tpu_torch.models import epilogue as E
+
+    layers = {**checks.MAIN_PATH, **checks.OTHERS}
+    max_abs = 0.0
+    for name, layer in layers.items():
+        boards = checks.BOARDS if name in checks.MAIN_PATH else 64
+        r = checks.kernel_vs_plain(layer, boards, DEV)
+        sync()
+        max_abs = max(max_abs, r["max_abs"])
+        log(f"[epilogue] {name} at {boards} boards: bit-exact "
+            f"{r['bit_exact']}, max |d| {r['max_abs']}, launches "
+            f"{r['launches']}")
+        if not (r["bit_exact"] and r["launches"] == 1
+                and r["channels_last"]):
+            raise AssertionError(f"epilogue {name}: {r}")
+    paths = {}
+    for full in (True, False):
+        r = checks.silver_forward_paths(1024, seed=1, full_network=full,
+                                        device=DEV)
+        want = 31 if full else 25
+        tag = "full" if full else "worker"
+        log(f"[epilogue] silver {tag} forward, NHWC vs NCHW path, 1024 "
+            f"boards: max |d pi| {r['pi_gap']!r}, max |d v| "
+            f"{r['v_gap']!r}, bit-exact {r['bit_exact']}, launches "
+            f"{r['launches']} ({want} expected)")
+        if r["launches"] != want or r["pi_gap"] > checks.PATH_TOL["pi"] \
+                or r["v_gap"] > checks.PATH_TOL["v"]:
+            raise AssertionError(f"silver {tag} forward paths: {r}")
+        paths[tag] = r
+    times = {}
+    for name, layer in checks.MAIN_PATH.items():
+        c, bias, y = checks.layer_inputs(layer, checks.BOARDS, DEV)
+        cn, yn, rows = c.contiguous(), y.contiguous(), checks.pad_rows(y)
+        kernel = cuda_ms(lambda: E.epilogue(c, bias, rows, layer.mode,
+                                            layer.act, layer.cin), 50)
+        plain = cuda_ms(lambda: E.epilogue_plain(cn, bias, yn, layer.mode,
+                                                 layer.act), 20)
+        elu = cuda_ms(lambda: F.elu(cn), 50)
+        bound = checks.layer_bytes(layer) / HBM_BYTES_PER_S * 1e3
+        times[name] = {"kernel_ms": kernel, "plain_ms": plain,
+                       "elu_ms": elu, "bound_ms": bound,
+                       "bytes": checks.layer_bytes(layer)}
+        log(f"[epilogue] {card}: {name}: kernel {kernel:.4f} ms, bound "
+            f"{bound:.4f} ms ({checks.layer_bytes(layer)} bytes, "
+            f"{100 * bound / kernel:.1f}% of it), plain {plain:.4f} ms, "
+            f"F.elu alone {elu:.4f} ms")
+    results.update(epilogue_paths=paths, epilogue_times=times,
+                   epilogue_max_abs_err=max_abs)
+
+
 def phase_selfplay(results, card):
     """The acting loop of training, through its entry points."""
     from drl_tetris_tpu_torch.algos.rollout import (make_policy_fn,
@@ -455,6 +540,7 @@ def phase_selfplay(results, card):
     from drl_tetris_tpu_torch.engine import cuda_tick, rng
     from drl_tetris_tpu_torch.engine.checks import hold_ticks, max_abs_err
     from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv
+    from drl_tetris_tpu_torch.models import epilogue
     from drl_tetris_tpu_torch.models.convert import seeded_state_dict
     from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet
 
@@ -470,12 +556,18 @@ def phase_selfplay(results, card):
     st0 = env.reset(2)
     for k in cuda_tick.LAUNCHES:
         cuda_tick.LAUNCHES[k] = 0
+    epilogue.LAUNCHES["epilogue"] = 0
     sync()
     t0 = time.perf_counter()
     st, seg, last = rollout(st0, key)
     sync()
     secs = time.perf_counter() - t0
     launches = dict(cuda_tick.LAUNCHES)
+    epilogue_launches = epilogue.LAUNCHES["epilogue"]
+    if epilogue_launches != 31 * (HORIZON + 1):
+        raise AssertionError(
+            f"{epilogue.LAUNCHES['epilogue']} epilogue launches in a "
+            f"rollout of {HORIZON + 1} full 'silver' forwards, not 31 each")
 
     T, N, H = HORIZON, N_SLICE, cfg.engine.height
     shapes = {"occ": (T, N, 2, H), "vec": (T, N, 2, 12), "piece": (T, N),
@@ -552,7 +644,8 @@ def phase_selfplay(results, card):
                    env_step_ms=env_ms, step_launches=launches["step"],
                    net_err=net_err, acting_tick_kernels=tick_kernels,
                    noise_draw_kernels=draw_kernels,
-                   parent_draw_kernels=parent_draw)
+                   parent_draw_kernels=parent_draw,
+                   selfplay_epilogue_launches=epilogue_launches)
 
 
 def acting_kernels(env, net, st):
@@ -2630,7 +2723,27 @@ def phase_times(results, card, baseline=None):
         kernels[0]["baseline_ms"] = step_times[1]
         kernels[1]["baseline_ms"] = roll_times[1]
     results["engine_sps"] = N_ENGINE * T_ENGINE / roll_ms * 1e3
-    return kernels
+    return kernels + [epilogue_entry(results)]
+
+
+def epilogue_entry(results):
+    """The kernels line's entry of the residual layers' epilogue, from
+    ``phase_epilogue`` and ``phase_selfplay``: per main-path shape its
+    time, bytes bound and plain version's time."""
+    from drl_tetris_tpu_torch.models import checks
+    times = results["epilogue_times"]
+    return dict(
+        name="net_epilogue", route="cuda",
+        source="drl_tetris_tpu_torch/csrc/net_epilogue.cu", replaces=None,
+        selfplay_launches=results["selfplay_epilogue_launches"],
+        max_abs_err=results["epilogue_max_abs_err"],
+        ms={k: v["kernel_ms"] for k, v in times.items()},
+        bound_ms={k: v["bound_ms"] for k, v in times.items()},
+        bound_by="bytes",
+        plain_ms={k: v["plain_ms"] for k, v in times.items()},
+        library_ms={k: v["elu_ms"] for k, v in times.items()},
+        path="no-grad forward of every ResidualBlock on the card",
+        shape=f"{checks.BOARDS} boards of {checks.MAP[0]} x {checks.MAP[1]}")
 
 
 def main():
@@ -2658,7 +2771,8 @@ def main():
     results = {"card": card}
     t0 = time.perf_counter()
     baseline = phase_build(results, card, opts.baseline)
-    for phase in (phase_kernel_vs_plain, phase_selfplay, phase_train,
+    for phase in (phase_kernel_vs_plain, phase_epilogue, phase_selfplay,
+                  phase_train,
                   phase_seed, phase_cli, phase_demo, phase_play, phase_process,
                   phase_distributed, phase_bench, phase_dqn, phase_dual,
                   phase_dual_dqn, phase_architectures, phase_sixten,

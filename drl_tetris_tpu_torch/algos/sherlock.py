@@ -38,7 +38,7 @@ from drl_tetris_tpu_torch.env.observations import field_grid
 from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 from drl_tetris_tpu_torch.models.nets import (VEC_DIM, ModelConfig,
                                               ResidualBlock, SventonNet,
-                                              apply_visual_pad)
+                                              apply_visual_pad, cat_channels)
 from drl_tetris_tpu_torch.utils import tracing
 
 DISTRIBUTIONS = ("argmax", "pi", "boltzmann", "epsilon")
@@ -86,9 +86,10 @@ class SherlockNet(nn.Module):
         raw_v, _ = self.trunk(vec, vis)
         v0 = apply_visual_pad(vis[0].float()).permute(0, 3, 1, 2)
         b, _, h, w = v0.shape
-        x = torch.cat([vec[0].float()[:, :, None, None].expand(
-            b, VEC_DIM, h, w), v0], dim=1)
-        x = self.phi_conv(self.phi_tower(x))[:, :, 1:-1, 1:-1]
+        x = cat_channels([vec[0].float()[:, :, None, None].expand(
+            b, VEC_DIM, h, w), v0])
+        # NCHW for the phi conv, on either path: it runs as it did
+        x = self.phi_conv(self.phi_tower(x).contiguous())[:, :, 1:-1, 1:-1]
         m = torch.amax(x, dim=(2, 3), keepdim=True)
         e = torch.exp(x - m)
         phi = torch.clamp(e / torch.sum(e, dim=(2, 3), keepdim=True),

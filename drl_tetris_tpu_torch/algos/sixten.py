@@ -45,7 +45,8 @@ from drl_tetris_tpu_torch.env.env import TetrisVectorEnv, take_player
 from drl_tetris_tpu_torch.env.observations import field_grid
 from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 from drl_tetris_tpu_torch.models.nets import (VEC_DIM, ModelConfig,
-                                              ResidualBlock, apply_visual_pad)
+                                              ResidualBlock, apply_visual_pad,
+                                              cat_channels)
 from drl_tetris_tpu_torch.utils import tracing
 
 DISTRIBUTIONS = ("epsilon", "adaptive_epsilon", "argmax", "boltzmann")
@@ -102,10 +103,10 @@ class VNet(nn.Module):
         vec = [v.to(dt) for v in vec]
         hidden = [t(v) for t, v in zip(self.vis_tower, vis)]
         h, w = hidden[0].shape[2:]
-        joined = [t(torch.cat([v[:, :, None, None].expand(
-            v.shape[0], v.shape[1], h, w), hv], dim=1))
+        joined = [t(cat_channels([v[:, :, None, None].expand(
+            v.shape[0], v.shape[1], h, w), hv]))
             for t, v, hv in zip(self.join_tower, vec, hidden)]
-        v = self.value_tower(torch.cat(joined + vis, dim=1))
+        v = self.value_tower(cat_channels(joined + vis))
         v = v.float().mean(dim=(2, 3))                   # (B, P+1 | 1)
         if v.shape[-1] > 1:
             base, offs = v[:, :1], v[:, 1:]

@@ -40,10 +40,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -55,13 +51,13 @@ from drl_tetris_tpu_torch.engine.core import (ROW_MASKS, SPAWN_ROT,
 from drl_tetris_tpu_torch.engine import rng
 from drl_tetris_tpu_torch.engine.step import COMBO_POW_BITS, DUR_SLOPE
 from drl_tetris_tpu_torch.env.env import EnvConfig, EnvState, step_plain
+from drl_tetris_tpu_torch.utils import nvcc
 
 LAUNCHES = {"step": 0, "step_kinds": 0, "rollout": 0}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "engine_tick.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.TARGET + ["--fmad=false"]
 MAX_H, MAX_CAP = 32, 64
 
 # EnvState leaves in kernel order, with dtype and per-game trailing shape.
@@ -265,34 +261,12 @@ def declare(fn_step, fn_rollout, with_stream: bool) -> None:
 _LIB = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the engine kernel is built with "
-                           "the CUDA toolkit on the machine with the card")
-    return path
-
-
 def build(source: Path = SOURCE) -> Tuple[Path, str]:
     """Compile ``source`` (csrc/engine_tick.cu) into build/torch_kernels/
-    unless the library for this exact source exists.  Returns (library
-    path, the compiler's report: ptxas registers, spills and stack per
-    kernel)."""
-    digest = hashlib.sha1(Path(source).read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libengine_tick-{digest}.so"
-    log = out.with_suffix(".ptxas.txt")
-    if out.exists():
-        return out, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    log.write_text(res.stderr)
-    os.replace(tmp, out)
-    return out, res.stderr
+    unless the library for this exact source exists
+    (``utils/nvcc.py``).  Returns (library path, the compiler's report:
+    ptxas registers, spills and stack per kernel)."""
+    return nvcc.build(source, NVCC_FLAGS)
 
 
 def open_library(path):
@@ -314,10 +288,7 @@ def load():
     return _LIB
 
 
-def check(rc: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t from a C entry."""
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+check = nvcc.check
 
 
 # ---------------------------------------------------------------------------

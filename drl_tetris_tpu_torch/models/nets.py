@@ -5,9 +5,19 @@ modules.
 Counterpart of ``drl_tetris_tpu/models/nets.py`` (reference: build_blocks.py,
 sventon_architectures.py, network_utils.py of the TF1 original).  Public
 functions keep the JAX package's layout: ``vis`` is ``(B, H, W, 1)``,
-``pi`` is ``(B, 4, W, 7)``; the modules run NCHW inside and permute at the
-boundary.  Convolutions are plain ``F.conv2d`` (cuDNN on the card), as the
-JAX package left them to XLA.
+``pi`` is ``(B, 4, W, 7)``; the modules index NCHW inside and permute at
+the boundary.  Convolutions are plain ``F.conv2d`` (cuDNN on the card), as
+the JAX package left them to XLA.
+
+The residual blocks run two ways, chosen by what their input shows.  On
+the card with autograd not recording (acting, evaluation, targets:
+``nhwc_path``) the activations are channels-last rows padded with zero
+channels to a multiple of 8, each conv runs without its bias, and one
+hand-written kernel (``models/epilogue.py``) adds the bias, joins the
+peephole and applies the activation, writing the padded rows the next
+conv reads; so cuDNN neither transposes nor pads.  Elsewhere (the CPU,
+the updates' forwards) the eager NCHW chain runs.  On the card the two
+give the same bits (``models/checks.py``).
 
 Compute dtype: with ``compute_dtype='bfloat16'`` (the default) the towers
 run in bfloat16 with float32 parameters cast at each conv, as flax does
@@ -34,6 +44,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from drl_tetris_tpu_torch import resolve_device
+from drl_tetris_tpu_torch.models.epilogue import (activation, epilogue,
+                                                  epilogue_plain,
+                                                  join_channels, padded,
+                                                  peephole_join)
 from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 
 ARCHITECTURES = ("silver", "vanilla", "keyboard", "dreamer")
@@ -99,31 +113,6 @@ def visual_stack(x: torch.Tensor, items: Sequence[str]) -> torch.Tensor:
     return torch.cat([x] + [table[k] for k in items], dim=1)
 
 
-def peephole_join(x, y, mode: str = "concat", dim: int = -1):
-    """network_utils.py:52-64: 'add' adds the smaller tensor onto the
-    leading channels of the larger and keeps the rest, 'truncate_add' keeps
-    only the sum, 'concat' concatenates."""
-    if mode in ("add", "truncate_add"):
-        nx, ny = x.shape[dim], y.shape[dim]
-        larger, smaller = (x, y) if nx > ny else (y, x)
-        n = smaller.shape[dim]
-        a = larger.narrow(dim, 0, n) + smaller
-        if mode == "truncate_add":
-            return a
-        return torch.cat([a, larger.narrow(dim, n, larger.shape[dim] - n)],
-                         dim=dim)
-    return torch.cat([x, y], dim=dim)
-
-
-def join_channels(c_conv: int, c_in: int, mode: str) -> int:
-    """Channels out of peephole_join(conv(c_in -> c_conv), input)."""
-    if mode == "add":
-        return max(c_conv, c_in)
-    if mode == "truncate_add":
-        return min(c_conv, c_in)
-    return c_conv + c_in
-
-
 def conv_shape_vector(vec: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Tile (B, K) into (B, h, w, K) planes (JAX layout)."""
     return vec[:, None, None, :].expand(vec.shape[0], h, w, vec.shape[1])
@@ -135,6 +124,40 @@ def _init_layer(layer: nn.Module, init: FlaxInit, kernel: str =
     (lecun_normal, flax's default, or glorot_uniform) and a zero bias."""
     getattr(init, kernel)(layer.weight)
     init.zeros(layer.bias)
+
+
+def nhwc_path(x: torch.Tensor) -> bool:
+    """Whether blocks fed ``x`` run channels-last through the epilogue
+    kernel: a CUDA tensor with autograd not recording."""
+    return x.is_cuda and not torch.is_grad_enabled()
+
+
+def nhwc_rows(tensors) -> torch.Tensor:
+    """The tensors concatenated along the channel axis into channels-last
+    rows padded with zero channels to a multiple of 8 (``padded``): a
+    block's input on the NHWC path.  One copy a tensor and one fill of the
+    padding (torch.cat into channels-last rows scatters element by
+    element, several times slower)."""
+    b, _, h, w = tensors[-1].shape
+    c = sum(t.shape[1] for t in tensors)
+    out = torch.empty((b, padded(c), h, w), dtype=tensors[-1].dtype,
+                      device=tensors[-1].device,
+                      memory_format=torch.channels_last)
+    o = 0
+    for t in tensors:
+        out.narrow(1, o, t.shape[1]).copy_(t)
+        o += t.shape[1]
+    if o < out.shape[1]:
+        out.narrow(1, o, out.shape[1] - o).zero_()
+    return out
+
+
+def cat_channels(tensors) -> torch.Tensor:
+    """torch.cat along the channel axis; ``nhwc_rows`` where the tensors
+    are on the NHWC path (``nhwc_path`` of the last)."""
+    if nhwc_path(tensors[-1]):
+        return nhwc_rows(tensors)
+    return torch.cat(tensors, dim=1)
 
 
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -209,6 +232,8 @@ class ResidualBlock(nn.Module):
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout rate {dropout} outside [0, 1)")
         self.peepholes, self.pools = peepholes, pools
+        self.in_channels = in_channels
+        self._nhwc_weights = {}
         self.output_layer = output_layer
         self.pool_size = tuple(pool_size)
         self.dtype = dtype
@@ -252,26 +277,86 @@ class ResidualBlock(nn.Module):
             init.zeros(self.norm.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Per layer: conv without bias, then the epilogue (bias, peephole
+        join, activation; before a LayerNorm, the join alone), then the
+        pool.  An input on the NHWC path (``nhwc_path``) takes
+        ``forward_nhwc``; any other the eager NCHW chain
+        (``epilogue_plain``)."""
         dt = self.dtype
+        if nhwc_path(x):
+            return self.forward_nhwc(x)
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
             y = x
             x = F.conv2d(x.to(dt), conv.weight.to(dt), None, 1, conv.padding)
-            x = x + conv.bias.to(dt)[None, :, None, None]
-            if self.peepholes:
-                x = peephole_join(x, y, self.modes[i], dim=1)
-            if i == last and self.norm is not None:
-                x = self.norm(x.float().permute(0, 2, 3, 1)).permute(
-                    0, 3, 1, 2)
-            if self.acts[i] == "elu":
-                x = F.elu(x)
-            elif self.acts[i] == "tanh":
-                x = torch.tanh(x)
-            if self.pools:
-                h, w = x.shape[2:]
-                ph, pw = min(self.pool_size[0], h), min(self.pool_size[1], w)
-                x = F.avg_pool2d(x, (ph, pw), stride=(ph, pw))
+            norm = i == last and self.norm is not None
+            x = epilogue_plain(x, conv.bias, y if self.peepholes else None,
+                               self.modes[i], None if norm else self.acts[i])
+            if norm:
+                x = activation(self.norm(x.float().permute(0, 2, 3, 1)
+                                         ).permute(0, 3, 1, 2), self.acts[i])
+            x = self._pool(x)
         return x
+
+    def forward_nhwc(self, x: torch.Tensor) -> torch.Tensor:
+        """The card's no-grad path: channels-last rows padded to a multiple
+        of 8 channels (``epilogue.padded``), each conv on such rows with
+        its kernel padded to match (``_nhwc_weight``), so cuDNN neither
+        transposes nor pads; the epilogue kernel writes the next padded
+        rows.  ``x`` holds the block's input channels first and zeros
+        after them (``nhwc_rows``), or exactly its input channels, in the
+        block's dtype: the eager chain joins another dtype's input in the
+        promoted dtype, which the kernel does not, so such an input raises.
+        Returns the output channels, a view of the last padded rows."""
+        if x.dtype != self.dtype:
+            raise ValueError(f"a {x.dtype} input to a {self.dtype} block on "
+                             f"the NHWC path; cast it to the block's dtype")
+        cl = torch.channels_last
+        c = self.in_channels
+        last = len(self.convs) - 1
+        for i, conv in enumerate(self.convs):
+            x = x.contiguous(memory_format=cl)
+            w = conv.weight
+            out = F.conv2d(x, self._nhwc_weight(i, w, x.shape[1]), None, 1,
+                           conv.padding).contiguous(memory_format=cl)
+            mode, act = self.modes[i], self.acts[i]
+            norm = i == last and self.norm is not None
+            x = epilogue(out, conv.bias, x if self.peepholes else None, mode,
+                         None if norm else act, c)
+            n = w.shape[0]
+            c = join_channels(n, c, mode) if self.peepholes else n
+            if norm:
+                x = activation(self.norm(x.narrow(1, 0, c).float().permute(
+                    0, 2, 3, 1)).permute(0, 3, 1, 2), act)
+            x = self._pool(x)
+        return x.narrow(1, 0, c)
+
+    def _nhwc_weight(self, i: int, w: torch.Tensor,
+                     channels: int) -> torch.Tensor:
+        """Conv i's kernel ``w`` for ``channels``-channel rows: in the
+        block's dtype, channels-last, its input channels zero-padded to
+        ``channels``.  One buffer per conv, device and width, refilled by
+        one copy every call (what the cast costs anyway); its padding stays
+        zero.  The port's forwards run on one stream, so a refill waits for
+        the conv that read the buffer last."""
+        key = (i, w.device, channels)
+        bufs = self._nhwc_weights.get(key)
+        if bufs is None:
+            buf = torch.empty((w.shape[0], channels) + tuple(w.shape[2:]),
+                              dtype=self.dtype, device=w.device,
+                              memory_format=torch.channels_last).zero_()
+            bufs = self._nhwc_weights[key] = (buf,
+                                              buf.narrow(1, 0, w.shape[1]))
+        bufs[1].copy_(w)
+        return bufs[0]
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The avg-pool after a layer, its window clamped to the map."""
+        if not self.pools:
+            return x
+        h, w = x.shape[2:]
+        ph, pw = min(self.pool_size[0], h), min(self.pool_size[1], w)
+        return F.avg_pool2d(x, (ph, pw), stride=(ph, pw))
 
 
 class KeyboardConv(nn.Module):
@@ -373,10 +458,17 @@ class SventonNet(nn.Module):
         h, w = hidden[0].shape[2:]
         vecp = [v[:, :, None, None].expand(v.shape[0], v.shape[1], h, w)
                 for v in vec]
-        joined = [t(torch.cat([vp, hv], dim=1))
+        joined = [t(cat_channels([vp, hv]))
                   for t, vp, hv in zip(self.join_tower, vecp, hidden)]
-        a = self.adv_tower(peephole_join(joined[0], vecp[1], "add", dim=1))
-        a = a.float()
+        if nhwc_path(vis[0]):   # peephole_join(joined[0], vecp[1], "add")
+            j, k = joined[0], VEC_DIM
+            a = nhwc_rows([j.narrow(1, 0, k) + vecp[1],
+                           j.narrow(1, k, j.shape[1] - k)])
+        else:
+            a = peephole_join(joined[0], vecp[1], "add", dim=1)
+        a = self.adv_tower(a)
+        # NCHW for the float32 head, on either path: its conv runs as it did
+        a = a.to(torch.float32, memory_format=torch.contiguous_format)
         if self.kbd_head:
             raw_a = self.kbd(a)
         else:
@@ -385,7 +477,7 @@ class SventonNet(nn.Module):
         if not self.full_network:
             return torch.zeros(vec[0].shape[0], 1, 1, 1,
                                device=raw_a.device), raw_a
-        v = self.value_tower(torch.cat(joined + vis, dim=1))
+        v = self.value_tower(cat_channels(joined + vis))
         v = v.float().mean(dim=(2, 3))                   # (B, P+1 | 1)
         if v.shape[-1] > 1:
             base, offs = v[:, :1], v[:, 1:]

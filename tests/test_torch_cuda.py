@@ -1,5 +1,9 @@
-"""The engine tick kernel (csrc/engine_tick.cu) against its plain PyTorch
-version on the card: every state leaf, reward and done flag bit for bit.
+"""The port's kernels against their plain PyTorch versions on the card: the
+engine tick kernel (csrc/engine_tick.cu), every state leaf, reward and done
+flag bit for bit; the residual layers' epilogue (csrc/net_epilogue.cu) bit
+for bit at the main path's shapes and at every other layer the registry
+builds, and the 'silver' net's no-grad forward on the NHWC path against
+its NCHW path (31 launches a full forward, 25 a worker-side one).
 
 These tests need an NVIDIA GPU and nvcc, and skip elsewhere.  They share
 their inputs and comparison with chip_smoke.py (engine/checks.py).  On a
@@ -25,6 +29,7 @@ from drl_tetris_tpu_torch.engine.checks import (compare_entries,  # noqa: E402
 from drl_tetris_tpu_torch.engine.core import EngineConfig, tree_leaves  # noqa: E402
 from drl_tetris_tpu_torch.env.env import (EnvConfig, TetrisVectorEnv,  # noqa: E402
                                           step_plain)
+from drl_tetris_tpu_torch.models import checks as net_checks  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +112,33 @@ def test_entries_match_plain_at(case):
     roll_err, step_err, dones, played = compare_entries(cfg, start, ar, at)
     assert roll_err == 0.0 and step_err == 0.0, (roll_err, step_err)
     assert dones > 0 and played > 0
+
+
+LAYERS = {**net_checks.MAIN_PATH, **net_checks.OTHERS}
+
+
+@pytest.mark.parametrize("name", sorted(LAYERS))
+def test_epilogue_kernel_matches_plain(name):
+    """The kernel on channels-last inputs against the eager chain on the
+    same values in NCHW, each followed by the layer's pool: bit for bit,
+    at 1024 boards for the main path's layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    boards = net_checks.BOARDS if name in net_checks.MAIN_PATH else 64
+    r = net_checks.kernel_vs_plain(LAYERS[name], boards)
+    assert r["bit_exact"], r
+    assert r["launches"] == 1 and r["channels_last"], r
+
+
+@pytest.mark.parametrize("full_network", [True, False])
+def test_silver_forward_nhwc_against_nchw(full_network):
+    """The 'silver' PPONet at the main path's widths, no grad: the NHWC
+    path against the NCHW path on the same 1024 boards; the epilogue
+    launches once a residual layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    r = net_checks.silver_forward_paths(1024, seed=1,
+                                        full_network=full_network)
+    assert r["launches"] == (31 if full_network else 25), r
+    assert r["pi_gap"] <= net_checks.PATH_TOL["pi"], r
+    assert r["v_gap"] <= net_checks.PATH_TOL["v"], r
