@@ -47,7 +47,7 @@ from drl_tetris_tpu_torch.models.flax_init import FlaxInit
 from drl_tetris_tpu_torch.models.nets import (VEC_DIM, ModelConfig,
                                               ResidualBlock, apply_visual_pad,
                                               cat_channels)
-from drl_tetris_tpu_torch.utils import tracing
+from drl_tetris_tpu_torch.utils import graphs, tracing
 
 DISTRIBUTIONS = ("epsilon", "adaptive_epsilon", "argmax", "boltzmann")
 
@@ -132,16 +132,21 @@ def _explore_eps(distribution: str, hp: HParams):
 
 
 def _sixten_stages(env: TetrisVectorEnv, net: VNet, distribution: str,
-                   epsilon: float, action_space: str):
+                   epsilon: float, action_space: str,
+                   cuda_graphs: bool = False):
     """The policy's two timed stages: masks(env_state) -> (obs, piece,
     rot, nxt, mask, occ_after), the observation and the legal successor
     boards; choose(masked, key, hp) -> (choice, prob, v_sel, v_mean), V
-    over the successors and the choice."""
+    over the successors and the choice.  With ``cuda_graphs``, the choice
+    (V over the successors, the exploration's threefry draws and the
+    pick) runs as a CUDA graph on the card (``utils/graphs.py``), one per
+    shape of the successor batch."""
     if distribution not in DISTRIBUTIONS:
         raise ValueError(distribution)
     cfg = env.cfg.engine
     H = cfg.height
     board_fn = M.pose_boards if action_space == "full" else M.placement_boards
+    captured = {}
 
     def masks(env_state):
         obs = env.observe(env_state)
@@ -152,21 +157,20 @@ def _sixten_stages(env: TetrisVectorEnv, net: VNet, distribution: str,
         mask, occ_after, _ = board_fn(cfg, occ, garb, piece, rot)
         return obs, piece, rot, nxt, mask, occ_after
 
-    def choose(masked, key, hp: Optional[HParams]):
-        if hp is None:
-            hp = HParams(epsilon=epsilon)
-        obs, _, _, nxt, mask, occ_after = masked
+    def pick(vec, vis, nxt, mask, occ_after, key, eps):
+        """The choice from tensors on one device alone (key the tick's,
+        eps the explore probability)."""
         n = mask.shape[0]
         k = mask[0].numel()
         my_grid = field_grid(cfg, occ_after.reshape(n * k, H))
-        vec_me = obs.vec[:, 0:1, :].expand(n, k, VEC_DIM).clone()
+        vec_me = vec[:, 0:1, :].expand(n, k, VEC_DIM).clone()
         vec_me[:, :, 5:] = 0.0
-        vec_opp = obs.vec[:, 1:2, :].expand(n, k, VEC_DIM)
-        vis_opp = obs.vis[:, 1:2].expand((n, k) + obs.vis.shape[2:])
+        vec_opp = vec[:, 1:2, :].expand(n, k, VEC_DIM)
+        vis_opp = vis[:, 1:2].expand((n, k) + vis.shape[2:])
         v = net([vec_me.reshape(n * k, VEC_DIM),
                  vec_opp.reshape(n * k, VEC_DIM)],
                 [my_grid[..., None],
-                 vis_opp.reshape((n * k,) + obs.vis.shape[2:])])
+                 vis_opp.reshape((n * k,) + vis.shape[2:])])
         v = v.reshape(n, k, -1)
         if v.shape[-1] > 1:
             v_next = v.gather(2, nxt.long()[:, None, None].expand(n, k, 1)
@@ -180,13 +184,12 @@ def _sixten_stages(env: TetrisVectorEnv, net: VNet, distribution: str,
         if distribution == "argmax":
             choice = greedy
         else:
-            kexp, kpick = rng.split(key.to(mask.device))
+            kexp, kpick = rng.split(key)
             if distribution == "boltzmann":
                 choice = categorical(kpick, scores)
             else:
                 rand_pick = categorical(kpick, torch.log(legal.float()))
                 u = rng.uniform01(kexp, (n,))
-                eps = _explore_eps(distribution, hp).to(u.device)
                 choice = torch.where(u < eps, rand_pick, greedy)
         count = legal.sum(1)
         choice = torch.where(count > 0, choice, 0)
@@ -198,12 +201,33 @@ def _sixten_stages(env: TetrisVectorEnv, net: VNet, distribution: str,
         v_mean = torch.where(legal, v_mean_next, 0.0).mean(1)
         return choice, prob, v_sel, v_mean
 
+    def choose(masked, key, hp: Optional[HParams]):
+        if hp is None:
+            hp = HParams(epsilon=epsilon)
+        obs, _, _, nxt, mask, occ_after = masked
+        dev = mask.device
+        graphed = cuda_graphs and graphs.usable(dev)
+        if key is not None:
+            key = key.to(dev)
+        elif graphed:                  # argmax reads no key
+            key = torch.zeros(2, dtype=torch.int64, device=dev)
+        eps = _explore_eps(distribution, hp).to(dev)
+        args = (obs.vec, obs.vis, nxt, mask, occ_after, key, eps)
+        if not graphed:
+            return pick(*args)
+        shapes = tuple((a.shape, a.dtype) for a in args)
+        if shapes not in captured:
+            captured[shapes] = graphs.Captured(pick, args)
+        # the graph's outputs are overwritten by its next replay
+        return tuple(o.clone() for o in captured[shapes](*args))
+
     return masks, choose
 
 
 def make_sixten_policy(env: TetrisVectorEnv, net: VNet,
                        distribution: str = "epsilon", epsilon: float = 0.05,
-                       action_space: str = "top_drop"):
+                       action_space: str = "top_drop",
+                       cuda_graphs: bool = False):
     """Returns policy(env_state, key, hp=None) -> (obs, piece,
     r_rel, x, prob, v_sel, v_mean) for env.step_place, or with
     action_space "full" (obs, piece, rot, col, y, prob, v_sel, v_mean) for
@@ -212,9 +236,10 @@ def make_sixten_policy(env: TetrisVectorEnv, net: VNet,
     one-hot (not drawn yet); V is read for the piece that acts in the
     successor (the current next piece).  ``key`` is the tick's (2,) key
     (unused by argmax).  Spans: ``masks`` (the observation and the legal
-    placements), ``forward`` (V over the successors and the choice)."""
+    placements), ``forward`` (V over the successors and the choice).
+    ``cuda_graphs``: the choice as a CUDA graph on the card."""
     masks, choose = _sixten_stages(env, net, distribution, epsilon,
-                                   action_space)
+                                   action_space, cuda_graphs)
     cfg = env.cfg.engine
     W, H = cfg.width, cfg.height
     full = action_space == "full"
@@ -235,6 +260,7 @@ def make_sixten_policy(env: TetrisVectorEnv, net: VNet,
         r_rel = torch.remainder(r_abs - rot, 4).to(torch.int32)
         return obs, piece, r_rel, x, prob, v_sel, v_mean
 
+    policy.stages = (masks, choose)
     return policy
 
 
@@ -243,7 +269,8 @@ KEYED = ("epsilon", "adaptive_epsilon", "boltzmann")
 
 def make_sixten_rollout(env: TetrisVectorEnv, net: VNet, horizon: int,
                         distribution: str = "epsilon", epsilon: float = 0.05,
-                        action_space: str = "top_drop"):
+                        action_space: str = "top_drop",
+                        cuda_graphs: bool = False):
     """Returns rollout(env_state, key, hp=None) -> (env_state',
     Segment, v_last): ``horizon`` ticks of the world-model policy, each
     stepped with env.step_place (top-drop) or env.step_pose (full), one
@@ -251,12 +278,12 @@ def make_sixten_rollout(env: TetrisVectorEnv, net: VNet, horizon: int,
     are JAX's: split(key, horizon) per tick, fold_in(key, horizon) for the
     bootstrap.  Spans: the policy's ``masks`` and ``forward``, then
     ``tick`` (the env step), each tick; the segment's stack and the
-    bootstrap's whole policy call are one more ``forward``."""
+    bootstrap's whole policy call are one more ``forward``.
+    ``cuda_graphs``: the choice as a CUDA graph on the card."""
     full = action_space == "full"
     policy = make_sixten_policy(env, net, distribution, epsilon,
-                                action_space)
-    masks, choose = _sixten_stages(env, net, distribution, epsilon,
-                                   action_space)
+                                action_space, cuda_graphs)
+    masks, choose = policy.stages
     keyed = "epsilon" if distribution in KEYED else distribution
 
     @torch.no_grad()
@@ -346,24 +373,83 @@ def sample_for_update(engine_cfg: EngineConfig, cfg: SixtenConfig,
                       replay: ReplayState, key, alpha, beta, gumbel=None):
     """(idx, is_weights, samples, kp): the prioritized sample (JAX's key
     ks of split(key), or the given gumbel noise) with its k-step
-    targets."""
-    ks, kp = rng.split(key)
-    idx, iw = replay_sample(replay_cfg, replay, cfg.n_samples_each_update,
-                            alpha, beta, ks, gumbel)
-    win = replay_gather_windows(replay_cfg, replay, idx)
+    targets.  Spans: ``update.sample`` (the noise, the scores, the top-k
+    and the windows' gather), ``update.targets`` (the reference net's
+    forwards)."""
+    with tracing.leaf("update.sample"):
+        ks, kp = rng.split(key)
+        idx, iw = replay_sample(replay_cfg, replay,
+                                cfg.n_samples_each_update, alpha, beta, ks,
+                                gumbel)
+        win = replay_gather_windows(replay_cfg, replay, idx)
+    with tracing.leaf("update.targets"):
+        target = target_fn(ref_net, win)
     samples = {"occ0": win["occ"][:, 0], "vec0": win["vec"][:, 0],
-               "piece": win["piece"], "target": target_fn(ref_net, win)}
+               "piece": win["piece"], "target": target}
     return idx, iw, samples, kp
 
 
+def _graph_step(engine_cfg: EngineConfig, cfg: SixtenConfig, net,
+                samples: dict, iw: torch.Tensor, mi: torch.Tensor):
+    """A minibatch's forward, loss and backward over an update's samples
+    captured as a CUDA graph (``utils/graphs.py``): the graph's
+    ``samples`` and ``iw`` hold the update's copies, its argument is the
+    minibatch's rows, its outputs (new priorities, stats), and each
+    replay writes the gradient into the same ``grads`` (None before the
+    capture, as ``zero_grad(set_to_none=True)`` leaves them)."""
+    params = list(net.parameters())
+    bufs = {k: v.clone() for k, v in samples.items()}
+    weights = iw.clone()
+
+    def step(rows):
+        mb = {k: v.index_select(0, rows) for k, v in bufs.items()}
+        loss, prios, stats = sixten_loss(engine_cfg, cfg, net, mb,
+                                         weights.index_select(0, rows))
+        loss.backward()
+        return prios, stats
+
+    def clear():
+        for p in params:
+            p.grad = None
+    g = graphs.Captured(step, (mi,), before_capture=clear)
+    g.samples, g.iw, g.params = bufs, weights, params
+    g.grads = [p.grad for p in params]
+    g.ptrs = [p.data_ptr() for p in params]
+    return g
+
+
 def make_sixten_update(engine_cfg: EngineConfig, net: VNet,
-                       cfg: SixtenConfig, replay_cfg: ReplayConfig):
+                       cfg: SixtenConfig, replay_cfg: ReplayConfig,
+                       cuda_graphs: bool = False):
     """Returns (init_fn(net) -> SixtenState, update_fn(state, replay, key,
     alpha, beta, gumbel=None) -> (state, replay, stats)): prioritized
     k-step V-learning; epochs shuffle with JAX's permutation, each row's
     new priority is from the last epoch whose minibatches held it, and the
-    reference net syncs every ``time_to_reference_update`` updates."""
+    reference net syncs every ``time_to_reference_update`` updates.
+    With ``cuda_graphs``, on the card and without dropout, a minibatch's
+    forward, loss and backward replay one CUDA graph (``_graph_step``,
+    captured at the first update and kept while the weights stay where
+    they were) and Adam steps as before.
+    Spans: ``sample_for_update``'s, then ``update.step`` once a minibatch
+    (forward, backward, Adam step) and ``update.prios`` (the new
+    priorities written back)."""
     target_fn = make_target_fn(engine_cfg, None, cfg.estimator)
+    captured = {}
+
+    def graphed(state: SixtenState, samples: dict, iw: torch.Tensor,
+                mi: torch.Tensor):
+        """The update's graph, its samples and weights copied in."""
+        g = captured.get("step")
+        if g is not None and g.fits((mi,)) and g.ptrs == [
+                p.data_ptr() for p in state.net.parameters()] and all(
+                g.samples[k].shape == v.shape for k, v in samples.items()):
+            for k, v in samples.items():
+                g.samples[k].copy_(v)
+            g.iw.copy_(iw)
+            return g
+        g = captured["step"] = _graph_step(engine_cfg, cfg, state.net,
+                                           samples, iw, mi)
+        return g
 
     def init_fn(net=net) -> SixtenState:
         opt = torch.optim.Adam(net.parameters(), lr=cfg.lr,
@@ -378,16 +464,31 @@ def make_sixten_update(engine_cfg: EngineConfig, net: VNet,
         n = cfg.n_samples_each_update
         prio_buf = torch.zeros(n, dtype=torch.float32, device=iw.device)
         stats = None
+        use_graph = cuda_graphs and graphs.usable(iw.device) \
+            and state.net.cfg.dropout == 0
+        g = None
         for epoch in minibatch_indices(cfg, n, kp):
             for mi in epoch:
-                mb = {k: v.index_select(0, mi) for k, v in samples.items()}
-                loss, prios, stats = sixten_loss(engine_cfg, cfg, state.net,
-                                                 mb, iw.index_select(0, mi))
-                state.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                state.optimizer.step()
-                prio_buf[mi] = prios
-        replay_update_prios(replay, idx, prio_buf)
+                with tracing.leaf("update.step"):
+                    if use_graph:
+                        g = g or graphed(state, samples, iw, mi)
+                        prios, stats = g(mi)
+                        for p, grad in zip(g.params, g.grads):
+                            p.grad = grad
+                    else:
+                        mb = {k: v.index_select(0, mi)
+                              for k, v in samples.items()}
+                        loss, prios, stats = sixten_loss(
+                            engine_cfg, cfg, state.net, mb,
+                            iw.index_select(0, mi))
+                        state.optimizer.zero_grad(set_to_none=True)
+                        loss.backward()
+                    state.optimizer.step()
+                    prio_buf[mi] = prios
+        if g is not None:
+            stats = {k: v.clone() for k, v in stats.items()}
+        with tracing.leaf("update.prios"):
+            replay_update_prios(replay, idx, prio_buf)
         state.update_count += 1
         if state.update_count % cfg.time_to_reference_update == 0:
             sync_reference(state)

@@ -788,6 +788,9 @@ class StandaloneSIXtenConfig:
     # top-drop and finesse rests through step_pose
     action_space: str = "top_drop"
     seed: int = 0
+    # on the card: the search's choice and each minibatch's
+    # forward and backward replay CUDA graphs (algos/sixten.py)
+    cuda_graphs: bool = True
 
 
 class StandaloneSIXtenTrainer(_RefNetLearner, _DQNActing):
@@ -816,9 +819,10 @@ class StandaloneSIXtenTrainer(_RefNetLearner, _DQNActing):
         self.rollout = make_sixten_rollout(
             self.env, self.net, cfg.horizon,
             distribution=cfg.train_distribution,
-            epsilon=param_eval(cfg.epsilon), action_space=cfg.action_space)
-        self.init_opt, self.update = make_sixten_update(e, self.net,
-                                                        self.scfg, cfg.replay)
+            epsilon=param_eval(cfg.epsilon), action_space=cfg.action_space,
+            cuda_graphs=cfg.cuda_graphs)
+        self.init_opt, self.update = make_sixten_update(
+            e, self.net, self.scfg, cfg.replay, cuda_graphs=cfg.cuda_graphs)
         self.state = self.init_opt(self.net)
         self.replay = replay_init(cfg.replay, self.device)
         self.env_state = self.env.reset(kenv)

@@ -3,7 +3,10 @@ engine tick kernel (csrc/engine_tick.cu), every state leaf, reward and done
 flag bit for bit; the residual layers' epilogue (csrc/net_epilogue.cu) bit
 for bit at the main path's shapes and at every other layer the registry
 builds, and the 'silver' net's no-grad forward on the NHWC path against
-its NCHW path (31 launches a full forward, 25 a worker-side one).
+its NCHW path (31 launches a full forward, 25 a worker-side one); the
+SIXten trainer with its CUDA graphs (the search's choice, each
+minibatch's forward and backward) bit for bit against the same trainer
+without them.
 
 These tests need an NVIDIA GPU and nvcc, and skip elsewhere.  They share
 their inputs and comparison with chip_smoke.py (engine/checks.py).  On a
@@ -142,3 +145,47 @@ def test_silver_forward_nhwc_against_nchw(full_network):
     assert r["launches"] == (31 if full_network else 25), r
     assert r["pi_gap"] <= net_checks.PATH_TOL["pi"], r
     assert r["v_gap"] <= net_checks.PATH_TOL["v"], r
+
+
+def test_sixten_trainer_graphs_match_eager():
+    """Three iterations of the SIXten trainer at the 'silver' widths, 8 games
+    x 8 ticks, updates of 256 samples in minibatches of 64: with its CUDA
+    graphs and without, the games, the replay, the weights, Adam's moments
+    and the stats agree bit for bit, and the graphs replayed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from drl_tetris_tpu_torch.algos.replay import ReplayConfig
+    from drl_tetris_tpu_torch.algos.sixten import SixtenConfig
+    from drl_tetris_tpu_torch.runtime.standalone import (
+        StandaloneSIXtenConfig, StandaloneSIXtenTrainer)
+    from drl_tetris_tpu_torch.utils import graphs
+    scfg = SixtenConfig(lr=1e-3, n_samples_each_update=256, minibatch_size=64,
+                        time_to_reference_update=2)
+    runs = []
+    for cuda_graphs in (False, True):
+        tr = StandaloneSIXtenTrainer(StandaloneSIXtenConfig(
+            replay=ReplayConfig(capacity=1024, sample_mode="rank"),
+            n_envs=8, horizon=8, seed=5, cuda_graphs=cuda_graphs),
+            sixten_cfg=scfg, device="cuda")
+        before = graphs.REPLAYS["graph"]
+        stats = [tr.train_iteration() for _ in range(6)]
+        replays = graphs.REPLAYS["graph"] - before
+        adam = [tr.state.optimizer.state[p][k] for p in tr.net.parameters()
+                for k in ("exp_avg", "exp_avg_sq")]
+        runs.append((tr, stats, replays, adam))
+    (eager, s_eager, r_eager, a_eager), (graph, s_graph, r_graph, a_graph) \
+        = runs
+    assert r_eager == 0
+    # a segment's 8 ticks and its bootstrap, 4 minibatches an update
+    assert graph.state.update_count >= 2
+    assert r_graph == 6 * 9 + 4 * graph.state.update_count
+    assert_bits_equal(eager.env_state, graph.env_state, "games")
+    for f in ("occ", "vec", "piece", "prio"):
+        assert torch.equal(getattr(eager.replay, f), getattr(graph.replay, f)
+                           ), f
+    for (name, p), q in zip(eager.net.named_parameters(),
+                            graph.net.parameters()):
+        assert torch.equal(p, q), name
+    for a, b in zip(a_eager, a_graph):
+        assert torch.equal(a, b)
+    assert s_eager == s_graph

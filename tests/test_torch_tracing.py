@@ -11,7 +11,9 @@
   rollout's unit.
 * SIXten's and Sherlock's rollouts time ``masks``, ``forward`` and
   ``tick`` once a tick, and the segment's stack with the bootstrap as one
-  more ``forward`` (so ``masks`` per tick is over the ticks alone).
+  more ``forward`` (so ``masks`` per tick is over the ticks alone);
+  SIXten's update ``update.sample``, ``update.targets``, ``update.step``
+  once a minibatch and ``update.prios``.
 * ``StandaloneTrainer``'s ``phase_ms`` holds its phases without a
   profiler, the spans inside them (its ticks) do not record then, and
   nothing records once the iteration is over.
@@ -29,13 +31,15 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from drl_tetris_tpu_torch import config  # noqa: E402
 from drl_tetris_tpu_torch.algos import sherlock, sixten  # noqa: E402
+from drl_tetris_tpu_torch.algos.replay import ReplayConfig  # noqa: E402
 from drl_tetris_tpu_torch.algos.rollout import make_rollout_fn  # noqa: E402
 from drl_tetris_tpu_torch.engine import rng  # noqa: E402
 from drl_tetris_tpu_torch.env.env import EnvConfig, TetrisVectorEnv  # noqa: E402
 from drl_tetris_tpu_torch.models.nets import ModelConfig, PPONet  # noqa: E402
 from drl_tetris_tpu_torch.runtime.runner import make_worker_parts  # noqa: E402
 from drl_tetris_tpu_torch.runtime.standalone import (  # noqa: E402
-    StandaloneConfig, StandaloneTrainer)
+    StandaloneConfig, StandaloneSIXtenConfig, StandaloneSIXtenTrainer,
+    StandaloneTrainer)
 from drl_tetris_tpu_torch.utils import tracing  # noqa: E402
 
 N, HORIZON = 2, 2
@@ -142,6 +146,25 @@ def test_placement_rollout_phases(algo):
     assert counts == {"masks": HORIZON, "forward": HORIZON + 1,
                       "tick": HORIZON}
     assert [s.name for s in spans[-2:]] == ["tick", "forward"]
+    if algo == "sixten":
+        assert update_spans() == ["update.sample", "update.targets",
+                                  "update.step", "update.step",
+                                  "update.prios"]
+
+
+def update_spans():
+    """The spans of one update of a tiny SIXten trainer (8 samples in
+    minibatches of 4) under an ``Iteration`` that records every span."""
+    tr = StandaloneSIXtenTrainer(StandaloneSIXtenConfig(
+        model=TINY, replay=ReplayConfig(capacity=64, sample_mode="rank"),
+        n_envs=N, horizon=HORIZON), sixten.SixtenConfig(
+            n_samples_each_update=8, minibatch_size=4), device="cpu")
+    for _ in range(2):
+        tr.train_iteration()
+    tracing.clear()
+    with tracing.Iteration("cpu", every_span=True):
+        tr.update(tr.state, tr.replay, rng.prng_key(4, "cpu"), 0.7, 0.5)
+    return [s.name for s in tracing.spans()]
 
 
 def test_trainer_phase_ms_without_a_profiler():
